@@ -1,0 +1,42 @@
+"""pioran_tpu_torch: the PyTorch + CUDA port of pioran_tpu.
+
+Scalable Gaussian-process power-spectral-density inference (bending
+power-law PSDs of irregularly sampled light curves through O(N)
+celerite likelihoods), on an NVIDIA H100. The JAX package ``pioran_tpu``
+stays beside it as the reference. Ported so far: the PSD models, the
+celerite kernel algebra, the PSD -> celerite approximation, the priors,
+the batched celerite log-likelihood (a hand-written CUDA kernel on the
+card, its plain PyTorch version on the CPU), nested sampling and the
+flagship single-bending model with ``run_inference(sampler="ns")``.
+"""
+
+from .config import require_cuda
+from .models.psd import (
+    PowerSpectralDensity,
+    PowerLaw,
+    SingleBendingPowerLaw,
+    DoubleBendingPowerLaw,
+    Lorentzian,
+    QPO,
+    SumPSD,
+    separate_psd,
+)
+from .models.kernels import (
+    CeleriteKernel,
+    celerite_term,
+    sho_term,
+    exp_term,
+    SHO,
+    Exp,
+    celerite_psd,
+    celerite_covariance,
+)
+from .ops.approx import approx, get_approx_coefficients
+from .priors import (
+    TwoUniformDependent,
+    ThreeUniformDependent,
+    TwoLogUniformDependent,
+)
+from .inference import single_bending_model, run_inference
+
+__version__ = "0.5.0"
