@@ -5,9 +5,11 @@ power-law PSDs of irregularly sampled light curves through O(N)
 celerite likelihoods), on an NVIDIA H100. The JAX package ``pioran_tpu``
 stays beside it as the reference. Ported so far: the PSD models, the
 celerite kernel algebra, the PSD -> celerite approximation, the priors,
-the batched celerite log-likelihood (a hand-written CUDA kernel on the
-card, its plain PyTorch version on the CPU), nested sampling and the
-flagship single-bending model with ``run_inference(sampler="ns")``.
+the batched celerite log-likelihood and its gradient (hand-written CUDA
+kernels on the card, their plain PyTorch versions on the CPU), nested
+sampling, ChEES-HMC, ADVI and the flagship single-bending model with
+``run_inference(sampler="ns" | "chees" | "advi")``. Entry points run on
+the card unless given ``device="cpu"``.
 """
 
 from .config import require_cuda
@@ -37,6 +39,6 @@ from .priors import (
     ThreeUniformDependent,
     TwoLogUniformDependent,
 )
-from .inference import single_bending_model, run_inference
+from .inference import advi_seeded_inits, single_bending_model, run_inference
 
 __version__ = "0.5.0"

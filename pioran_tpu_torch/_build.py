@@ -17,7 +17,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -80,6 +81,13 @@ def load(name: str) -> ctypes.CDLL:
         raise RuntimeError(f"loading {lib_path} failed: {e}\n{log}") from e
     _LOADED[name] = (lib, seconds, log)
     return lib
+
+
+def load_all(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """:func:`load` for several sources, their nvcc builds run at once
+    (one process each)."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as ex:
+        return list(ex.map(load, names))
 
 
 def build_info(name: str) -> Tuple[float, str]:

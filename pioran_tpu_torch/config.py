@@ -2,10 +2,11 @@
 
 The reference (Pioran.jl) is float64 throughout, and so are the port's
 CPU tests and its correctness oracle. Production sampling on the card
-runs float32 through the hand-written CUDA likelihood kernel. Every
-public function takes its device and dtype from its input tensors or
-from explicit ``device``/``dtype`` arguments; nothing picks a device
-behind the caller's back.
+runs float32 through the hand-written CUDA kernels. Functions on tensors
+take their device and dtype from their inputs. The entry points that
+build data (``single_bending_model``, ``run_inference`` through its
+spec, the ``convert`` helpers) run on the card unless the caller passes
+``device="cpu"``, as the CPU tests do; without a card they raise.
 """
 
 from __future__ import annotations
@@ -38,10 +39,13 @@ def require_cuda() -> torch.device:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device (default: CPU). A CUDA device goes
-    through :func:`require_cuda`, so asking for the card without one
-    raises instead of running on the CPU."""
-    dev = torch.device("cpu" if device is None else device)
+    """``device`` as a torch.device. ``None`` means the card
+    (:func:`require_cuda`), and so does any CUDA device: without a card
+    both raise ``RuntimeError`` and nothing falls back to the CPU. The
+    CPU is used only when it is asked for."""
+    if device is None:
+        return require_cuda()
+    dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
     return dev

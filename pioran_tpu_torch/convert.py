@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from . import priors
-from .config import DEFAULT_DTYPE
+from .config import DEFAULT_DTYPE, resolve_device
 from .models.kernels import CeleriteKernel
 
 __all__ = ["prior_set_from_numpy", "ns_state_from_numpy", "coefficients_from_numpy"]
@@ -36,7 +36,8 @@ def ns_state_from_numpy(state: Sequence, generator: torch.Generator = None,
                         device=None, dtype: torch.dtype = DEFAULT_DTYPE) -> tuple:
     """The NS state 13-tuple (``samplers.ns`` order) from numpy values.
 
-    The key slot (index 5) is replaced by ``generator`` (a new one on
+    ``device`` defaults to the card (``device="cpu"`` for the CPU). The
+    key slot (index 5) is replaced by ``generator`` (a new one on
     ``device`` seeded with 0 when omitted); the iteration and call
     counts (indices 4 and 11) become Python ints; every other entry
     becomes a new tensor of ``dtype`` on ``device`` (a copy: the NS step
@@ -44,7 +45,7 @@ def ns_state_from_numpy(state: Sequence, generator: torch.Generator = None,
     """
     if len(state) != 13:
         raise ValueError(f"an NS state has 13 entries, got {len(state)}")
-    dev = torch.device("cpu" if device is None else device)
+    dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     out = []
@@ -60,6 +61,8 @@ def ns_state_from_numpy(state: Sequence, generator: torch.Generator = None,
 
 def coefficients_from_numpy(a, b, c, d, device=None,
                             dtype: torch.dtype = DEFAULT_DTYPE) -> CeleriteKernel:
-    """A CeleriteKernel from (..., J) numpy coefficient arrays."""
-    return CeleriteKernel(*(torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    """A CeleriteKernel from (..., J) numpy coefficient arrays, on the
+    card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    return CeleriteKernel(*(torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
                             for x in (a, b, c, d)))

@@ -2,16 +2,19 @@
 
 What is ported: the flagship single-bending power-law model
 (:func:`single_bending_model`) and :func:`run_inference` with
-``sampler="ns"``, which writes its results in the ultranest layout
-(``chains/equal_weighted_post.txt``, ``info/results.json``). The
-likelihood of a batch of parameter vectors is one batched PSD ->
-celerite approximation (plain PyTorch) feeding the CUDA celerite kernel
-on the card, or its plain version on the CPU.
+``sampler="ns"``, ``"chees"`` (ChEES-HMC, optionally seeded by
+:func:`advi_seeded_inits`) and ``"advi"``, which write their results in
+the ultranest layout (``chains/equal_weighted_post.txt``,
+``info/results.json``). The likelihood of a batch of parameter vectors
+is one batched PSD -> celerite approximation (plain PyTorch) feeding the
+CUDA celerite kernels on the card (K1 without a gradient, K3 and K4 with
+one), or their plain versions on the CPU.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -32,16 +35,18 @@ from .priors import (
     PriorSet,
     TwoUniformDependent,
 )
+from .samplers.advi import run_advi
+from .samplers.chees import run_chees
 from .samplers.ns import equal_weight_indices, run_ns
 from .utils.insertion import insertion_order_test
+from .utils.mcmc_stats import summarize_chains
 
-__all__ = ["GPModelSpec", "single_bending_model", "run_inference"]
+__all__ = ["GPModelSpec", "single_bending_model", "advi_seeded_inits",
+           "run_inference"]
 
 # samplers of the JAX package that are not ported yet, with the ROADMAP
 # item that ports them
 _NOT_PORTED = {
-    "chees": "ChEES-HMC and ADVI (ROADMAP queue 1, step 7)",
-    "advi": "ChEES-HMC and ADVI (ROADMAP queue 1, step 7)",
     "smc": "SMC and NUTS (ROADMAP queue 1, step 9)",
     "nuts": "SMC and NUTS (ROADMAP queue 1, step 9)",
 }
@@ -73,6 +78,17 @@ class GPModelSpec:
     loglike_batch: Optional[Callable] = None
     device: torch.device = torch.device("cpu")
     dtype: torch.dtype = DEFAULT_DTYPE
+
+    def logpost_batch(self, Z):
+        """(B, dim) unconstrained rows -> (B,) log-posteriors: the prior's
+        unconstrained log-density plus the likelihood of the mapped
+        parameters. Differentiable; on the card its gradient runs K3/K4."""
+        return self.prior.unconstrained_logpdf(Z) + self.loglike_batch(
+            self.prior.from_unconstrained(Z))
+
+    def logpost_unconstrained(self, z):
+        """The one-row case of :meth:`logpost_batch`."""
+        return self.logpost_batch(z[None])[0]
 
 
 def _batched_loglike_from_coeffs(coeff_fn, t, dt=None):
@@ -117,9 +133,10 @@ def single_bending_model(
     ``is_integrated_power=False`` makes ``variance`` the total process
     variance instead of the band-integrated power.
 
-    ``device`` (default CPU) and ``dtype`` place the data and every
-    likelihood evaluation; on a CUDA device the likelihood runs the
-    hand-written kernel.
+    ``device`` (default: the card; ``device="cpu"`` for the CPU) and
+    ``dtype`` place the data and every likelihood evaluation. On the card
+    the likelihood and its gradient run the hand-written CUDA kernels;
+    with no card and no ``device`` this raises ``RuntimeError``.
     """
     dev = resolve_device(device)
     # consecutive spacings computed in host f64 before any f32 cast:
@@ -193,38 +210,40 @@ def _kish_ess(logp: np.ndarray) -> float:
     return float(1.0 / np.sum(w * w))
 
 
-def run_inference(
+def advi_seeded_inits(
     spec: GPModelSpec,
-    sampler: str = "ns",
-    seed: int = 0,
-    num_particles: int = 2048,
-    num_samples: int = 1000,
-    log_dir: Optional[str] = None,
-    num_ns_mcmc: int = 8,
-    ns_move: str = "slice",
-    frac_remain: float = 1e-2,
-) -> Dict:
-    """Run nested sampling on a model spec and write its artifacts.
+    generator: torch.Generator,
+    num_chains: int,
+    num_steps: int = 1500,
+    overdispersion: float = 2.0,
+    num_mc: int = 8,
+):
+    """Dispersed chain inits for the gradient samplers: (num_chains, dim).
 
-    ``sampler="ns"`` is the direct ultranest analog: ``num_particles``
-    live points, evidence logZ with an ultranest-style logzerr, an
-    equal-weighted posterior and the insertion-order MWW test. Random
-    numbers come from one ``torch.Generator`` on the spec's device
-    seeded with ``seed``. Returns a results dict with posterior samples
-    (theta space), summary moments and the evidence; with ``log_dir``,
-    writes ``chains/equal_weighted_post.txt`` and ``info/results.json``.
-    Other samplers raise ``NotImplementedError``.
+    Raw prior draws leave a share of HMC chains on the flagship model's
+    f_1 plateaus, where the likelihood is flat and gradients vanish. So:
+    take the best of 256 prior draws (one batched sweep, no gradient),
+    start a mean-field ADVI fit there, and draw the chains from the fitted
+    Gaussian widened by ``overdispersion`` in unconstrained space, the
+    classical Gelman-Rubin prescription.
     """
-    if sampler in _NOT_PORTED:
-        raise NotImplementedError(
-            f"sampler={sampler!r} is not ported to pioran_tpu_torch yet: "
-            f"{_NOT_PORTED[sampler]}")
-    if sampler != "ns":
-        raise ValueError(
-            f"unknown sampler {sampler!r}; use ns, smc, nuts, chees or advi")
     prior = spec.prior
-    t0 = time.time()
-    gen = torch.Generator(device=spec.device).manual_seed(seed)
+    with torch.no_grad():
+        zc = prior.to_unconstrained(prior.sample(
+            (256,), generator=generator, dtype=spec.dtype, device=spec.device))
+        lp = spec.logpost_batch(zc)
+        lp = torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -math.inf))
+        z_init = zc[torch.argmax(lp)]
+    res = run_advi(spec.logpost_batch, z_init, generator, num_steps=num_steps,
+                   num_mc=num_mc, num_draws=1)
+    eps = torch.randn((num_chains, prior.dim), generator=generator,
+                      dtype=spec.dtype, device=spec.device)
+    return res.mu[None, :] + overdispersion * torch.exp(res.log_sigma)[None, :] * eps
+
+
+def _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc, ns_move, frac_remain):
+    """Nested sampling: (theta draws, the NS entries of the results)."""
+    prior = spec.prior
 
     def loglike_u_batch(U):
         return spec.loglike_batch(prior.transform(U))
@@ -245,7 +264,7 @@ def run_inference(
     logp = np.where(valid & np.isfinite(logp), logp, -np.inf)
     mww = insertion_order_test(res.insert_ranks.cpu().numpy(),
                                n_slots=num_particles - n_delete)
-    extra = {
+    return theta, {
         "logz": float(res.logZ),
         "logzerr": float(res.logZ_err),
         "H": float(res.H),
@@ -260,6 +279,112 @@ def run_inference(
             "pvalue": mww["pvalue"],
         },
     }
+
+
+def _run_chees(spec, gen, num_chains, num_warmup, num_samples, init, mass,
+               hmc_max_leapfrogs):
+    """ChEES-HMC: (theta draws, the MCMC entries of the results)."""
+    prior = spec.prior
+    if init == "advi":
+        z0 = advi_seeded_inits(spec, gen, num_chains)
+    elif init == "prior":
+        z0 = prior.to_unconstrained(prior.sample(
+            (num_chains,), generator=gen, dtype=spec.dtype, device=spec.device))
+    else:
+        raise ValueError(f"init must be 'prior' or 'advi', got {init!r}")
+    samples_z, stats = run_chees(
+        spec.logpost_batch, z0, gen, num_warmup=num_warmup,
+        num_samples=num_samples, mass=mass, max_leapfrogs=hmc_max_leapfrogs)
+    with torch.no_grad():
+        # (S, C, dim) -> (C, S, dim): per-chain draws, in theta space
+        chains_th = prior.from_unconstrained(samples_z.transpose(0, 1)).cpu().numpy()
+    theta = chains_th.transpose(1, 0, 2).reshape(-1, prior.dim)
+    conv = summarize_chains(chains_th)
+    ess_b = np.asarray(conv["ess_bulk"], np.float64)
+    return theta, {
+        # every leapfrog evaluates value+gradient for all chains
+        "ncall": int(stats["n_leapfrogs"].sum()) * num_chains,
+        "rhat": conv["rhat"],
+        "ess_bulk": conv["ess_bulk"],
+        "ess_tail": conv["ess_tail"],
+        # all-NaN for tiny runs (ESS undefined below 4 draws)
+        "ess": (float(np.nanmin(ess_b)) if np.any(np.isfinite(ess_b)) else float("nan")),
+    }
+
+
+def _run_advi(spec, gen, num_warmup, num_samples):
+    """Mean-field ADVI: (theta draws, the ADVI entries of the results)."""
+    prior = spec.prior
+    num_steps, num_mc = num_warmup + num_samples, 8
+    z0 = prior.to_unconstrained(prior.sample(
+        (), generator=gen, dtype=spec.dtype, device=spec.device))
+    res = run_advi(spec.logpost_batch, z0, gen, num_steps=num_steps, num_mc=num_mc,
+                   num_draws=num_samples)
+    with torch.no_grad():
+        theta = prior.from_unconstrained(res.samples).cpu().numpy()
+    return theta, {
+        "logz_lower": float(res.logZ_lower),
+        # ELBO-gradient likelihood evaluations: num_mc draws per step,
+        # plus the final 64-draw ELBO estimate
+        "ncall": int(num_steps * num_mc + 64),
+    }
+
+
+def run_inference(
+    spec: GPModelSpec,
+    sampler: str = "ns",
+    seed: int = 0,
+    num_particles: int = 2048,
+    num_chains: int = 16,
+    num_warmup: int = 500,
+    num_samples: int = 1000,
+    log_dir: Optional[str] = None,
+    num_ns_mcmc: int = 8,
+    ns_move: str = "slice",
+    frac_remain: float = 1e-2,
+    init: str = "prior",
+    mass: str = "diag",
+    hmc_max_leapfrogs: int = 128,
+) -> Dict:
+    """Run NS, ChEES-HMC or ADVI on a model spec and write its artifacts.
+
+    ``sampler="ns"`` is the direct ultranest analog: ``num_particles``
+    live points, evidence logZ with an ultranest-style logzerr, an
+    equal-weighted posterior and the insertion-order MWW test.
+    ``sampler="chees"`` runs ``num_chains`` ChEES-HMC chains for
+    ``num_warmup`` + ``num_samples`` iterations (at most
+    ``hmc_max_leapfrogs`` leapfrogs each) with a ``mass`` "diag" or
+    "dense" metric, started from prior draws (``init="prior"``) or from
+    an overdispersed ADVI fit (``init="advi"``, :func:`advi_seeded_inits`),
+    and reports split-r̂ and bulk/tail ESS per parameter.
+    ``sampler="advi"`` fits mean-field ADVI for ``num_warmup`` +
+    ``num_samples`` steps and reports ``num_samples`` draws and the ELBO
+    ``logz_lower``.
+
+    Random numbers come from one ``torch.Generator`` on the spec's device
+    seeded with ``seed``. Returns a results dict with posterior samples
+    (theta space), summary moments and the sampler's own entries, with
+    the JAX package's keys; with ``log_dir``, writes
+    ``chains/equal_weighted_post.txt`` and ``info/results.json``. SMC and
+    NUTS raise ``NotImplementedError``.
+    """
+    if sampler in _NOT_PORTED:
+        raise NotImplementedError(
+            f"sampler={sampler!r} is not ported to pioran_tpu_torch yet: "
+            f"{_NOT_PORTED[sampler]}")
+    t0 = time.time()
+    gen = torch.Generator(device=spec.device).manual_seed(seed)
+    if sampler == "ns":
+        theta, extra = _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc,
+                               ns_move, frac_remain)
+    elif sampler == "chees":
+        theta, extra = _run_chees(spec, gen, num_chains, num_warmup, num_samples,
+                                  init, mass, hmc_max_leapfrogs)
+    elif sampler == "advi":
+        theta, extra = _run_advi(spec, gen, num_warmup, num_samples)
+    else:
+        raise ValueError(
+            f"unknown sampler {sampler!r}; use ns, smc, nuts, chees or advi")
     elapsed = time.time() - t0
 
     # final per-sample likelihoods, chunked
@@ -284,7 +409,7 @@ def run_inference(
         },
         **extra,
     }
-    if elapsed > 0:
+    if "ess" in results and elapsed > 0:
         results["ess_per_s"] = float(results["ess"]) / elapsed
 
     if log_dir:

@@ -1,18 +1,24 @@
-"""Celerite table helpers, PyTorch port of part of ``pioran_tpu.ops.celerite``.
+"""The celerite scan, PyTorch port of part of ``pioran_tpu.ops.celerite``.
 
-Only what the likelihood path needs is here: the accurate float32
-``exp_neg``, the U/V/phi table build and the blocked ``stable_sum``.
-The three-scan factor/solve and simulate/predict come with the GP
-object API.
+The accurate float32 ``exp_neg``, the U/V/phi table build, the blocked
+``stable_sum``, and the three-scan LDL^T factor/solve with the
+log-likelihood ``logl``: Python loops over N on (..., R, R) tensors,
+batched over leading chain axes. Slow but exact, and differentiable by
+autograd, which makes them the oracle the adjoint kernels are tested
+against. ``logl_masked`` comes with the ragged multi-dataset kernel;
+simulate/predict with the GP object API.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+import math
+from typing import Tuple
 
 import torch
 
-__all__ = ["CeleriteUV", "exp_neg", "build_uv", "stable_sum"]
+__all__ = ["CeleriteUV", "exp_neg", "build_uv", "stable_sum",
+           "celerite_factor_solve", "logl"]
 
 
 class CeleriteUV(NamedTuple):
@@ -102,3 +108,68 @@ def stable_sum(x, dim: int = -1):
     if m > n:
         x = torch.nn.functional.pad(x, (0, m - n))
     return torch.sum(torch.sum(x.reshape(*x.shape[:-1], -1, k), dim=-1), dim=-1)
+
+
+def _factor(U, V, phi, sigma2, suma) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LDL^T factor scan over N: returns ``(D, W)``, shapes (..., N)
+    and (..., N, R).
+
+    S_n = (phi phi^T) o (S_{n-1} + D_{n-1} W_{n-1} W_{n-1}^T);
+    D_n = suma + sigma2_n - U_n . S_n U_n;  W_n = (V_n - S_n U_n) / D_n.
+    The first step has S = 0, so D_0 = suma + sigma2_0 and W_0 = V_0 / D_0.
+    """
+    N, R = U.shape[-2:]
+    D = [suma + sigma2[..., 0]]
+    W = [V[..., 0, :] / D[0][..., None]]
+    S = U.new_zeros(U.shape[:-2] + (R, R))
+    for n in range(1, N):
+        ph = phi[..., n, :]
+        S = (ph[..., :, None] * ph[..., None, :]) * (
+            S + D[-1][..., None, None] * (W[-1][..., :, None] * W[-1][..., None, :]))
+        SU = (S @ U[..., n, :, None])[..., 0]
+        Dn = suma + sigma2[..., n] - torch.sum(U[..., n, :] * SU, dim=-1)
+        D.append(Dn)
+        W.append((V[..., n, :] - SU) / Dn[..., None])
+    return torch.stack(D, dim=-1), torch.stack(W, dim=-2)
+
+
+def celerite_factor_solve(a, b, c, d, t, y, sigma2, dt=None):
+    """LDL^T factorisation and the K^{-1} y solve in three scans.
+
+    a, b, c, d: (..., J); t: (N,); y, sigma2: (..., N). Returns
+    ``(z, D, W, logdetD, uv)`` with ``z = K^{-1} y`` and
+    ``logdetD = sum log |D_n|``.
+    """
+    uv = build_uv(a, b, c, d, t, dt=dt)
+    U, V, phi = uv
+    N = U.shape[-2]
+    D, W = _factor(U, V, phi, sigma2, torch.sum(a, dim=-1))
+    logdetD = stable_sum(torch.log(torch.abs(D)))
+
+    # forward substitution: z' = (I + tril(U W^T))^{-1} y
+    zp = [y[..., 0]]
+    f = torch.zeros_like(U[..., 0, :])
+    for n in range(1, N):
+        f = phi[..., n, :] * (f + W[..., n - 1, :] * zp[-1][..., None])
+        zp.append(y[..., n] - torch.sum(U[..., n, :] * f, dim=-1))
+    zp = torch.stack(zp, dim=-1)
+
+    # backward substitution: z = D^{-1} z' then (I + triu(W U^T))^{-1}
+    z = [zp[..., -1] / D[..., -1]]
+    g = torch.zeros_like(f)
+    for n in range(N - 2, -1, -1):
+        g = phi[..., n + 1, :] * (g + U[..., n + 1, :] * z[-1][..., None])
+        z.append(zp[..., n] / D[..., n] - torch.sum(W[..., n, :] * g, dim=-1))
+    z = torch.stack(z[::-1], dim=-1)
+    return z, D, W, logdetD, uv
+
+
+def logl(a, b, c, d, t, y, sigma2, dt=None):
+    """Celerite GP log-likelihood, (...,):
+    -logdetD/2 - N log(2 pi)/2 - y^T K^{-1} y / 2, and -inf unless every
+    D_n > 0 and the value is finite."""
+    z, D, _, logdetD, _ = celerite_factor_solve(a, b, c, d, t, y, sigma2, dt=dt)
+    N = y.shape[-1]
+    ll = -0.5 * logdetD - 0.5 * N * math.log(2.0 * math.pi) - 0.5 * stable_sum(y * z)
+    ok = torch.all(D > 0, dim=-1) & torch.isfinite(ll)
+    return torch.where(ok, ll, torch.full_like(ll, -math.inf))

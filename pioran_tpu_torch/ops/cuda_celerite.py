@@ -11,9 +11,10 @@ nvcc at first use (see ``_build.py``).
   and the -inf rule. The CPU tests use it, and ``chip_smoke.py``
   compares the kernel with it on the card.
 - :func:`batched_loglike` sends CUDA tensors to the kernel (or raises)
-  and CPU tensors to the plain version. It is a
-  ``torch.autograd.Function`` whose backward raises until the adjoint
-  kernels are ported.
+  and CPU tensors to the plain version. When an input requires a
+  gradient it is a ``torch.autograd.Function`` whose forward is the
+  augmented forward K3 and whose backward is the reverse sweep K4
+  (``ops/cuda_celerite_vjp.py``), or their plain versions on the CPU.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its main
 path went through the kernel.
@@ -29,22 +30,14 @@ import torch
 
 from .. import _build
 from .celerite import exp_neg
+from .cuda_celerite_vjp import MAX_TERMS, bwd, check_inputs, fwd_aug, spacings
 
 __all__ = ["batched_loglike", "batched_loglike_plain", "MAX_TERMS"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
-MAX_TERMS = 32  # one warp lane per celerite term
 LAUNCHES = 0
 _LIB: Optional[ctypes.CDLL] = None
-
-
-def _spacings(t, dt):
-    """Per-step spacing with a leading 0: the first step is inert."""
-    zero = torch.zeros(1, dtype=t.dtype, device=t.device)
-    if dt is None:
-        return torch.cat([zero, torch.diff(t)])
-    return torch.cat([zero, torch.as_tensor(dt, device=t.device).to(t.dtype)])
 
 
 def batched_loglike_plain(a, b, c, d, t, y, sigma2, dt=None):
@@ -57,7 +50,7 @@ def batched_loglike_plain(a, b, c, d, t, y, sigma2, dt=None):
     """
     B, J = a.shape
     N = t.shape[0]
-    dtv = _spacings(t, dt)
+    dtv = spacings(t, dt)
     suma = torch.sum(a, dim=1)
     S00 = a.new_zeros(B, J, J)
     S01 = a.new_zeros(B, J, J)
@@ -124,28 +117,10 @@ def _lib() -> ctypes.CDLL:
 def _launch(a, b, c, d, t, y, sigma2, dt):
     """Run the CUDA kernel on CUDA tensors; raise on what it does not take."""
     global LAUNCHES
-    if a.dim() != 2:
-        raise ValueError(f"a must be (B, J), got {tuple(a.shape)}")
+    dt = check_inputs(a, b, c, d, t, y, sigma2, dt)
     B, J = a.shape
     N = t.shape[0]
-    if J > MAX_TERMS:
-        raise ValueError(
-            f"the CUDA celerite kernel takes at most {MAX_TERMS} terms "
-            f"(one warp lane each), got J={J}")
-    if a.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"float32 or float64 expected, got {a.dtype}")
-    dev, dtype = a.device, a.dtype
-    for name, x, shape in (("b", b, (B, J)), ("c", c, (B, J)), ("d", d, (B, J)),
-                           ("t", t, (N,)), ("y", y, (B, N)),
-                           ("sigma2", sigma2, (B, N))):
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {dev}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if dt is not None:
-        dt = torch.as_tensor(dt, device=dev).to(dtype)
-        if tuple(dt.shape) != (max(N - 1, 0),):
-            raise ValueError(f"dt must be ({N - 1},), got {tuple(dt.shape)}")
+    dtype, dev = a.dtype, a.device
     out = torch.empty(B, dtype=dtype, device=dev)
     if B == 0 or N == 0:
         return out
@@ -166,28 +141,46 @@ def _launch(a, b, c, d, t, y, sigma2, dt):
     return out
 
 
+def _forward(a, b, c, d, t, y, sigma2, dt):
+    if a.is_cuda:
+        return _launch(a, b, c, d, t, y, sigma2, dt)
+    return batched_loglike_plain(a, b, c, d, t, y, sigma2, dt)
+
+
 class _BatchedLoglike(torch.autograd.Function):
+    """Forward K3 (saving its residual tables), backward K4. Chains with
+    ll = -inf get a zero cotangent and so a zero gradient; ``dt`` gets
+    none (the t cotangent assumes dt = diff(t))."""
+
     @staticmethod
     def forward(ctx, a, b, c, d, t, y, sigma2, dt):
-        if a.is_cuda:
-            return _launch(a, b, c, d, t, y, sigma2, dt)
-        return batched_loglike_plain(a, b, c, d, t, y, sigma2, dt)
+        ll, residuals = fwd_aug(a, b, c, d, t, y, sigma2, dt)
+        ctx.save_for_backward(a, b, c, d, t, y, sigma2, ll, *residuals)
+        ctx.dt = dt
+        return ll
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "batched_loglike has no gradient yet: it needs the adjoint "
-            "kernels K3 (_fwd_aug_kernel) and K4 (_bwd_kernel) of "
-            "pioran_tpu/ops/pallas_celerite_vjp.py, queued in ROADMAP.md")
+        a, b, c, d, t, y, sigma2, ll, *residuals = ctx.saved_tensors
+        g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
+        grads = bwd(a, b, c, d, t, y, sigma2, residuals, g, ctx.dt)
+        return (*(gr if need else None
+                  for gr, need in zip(grads, ctx.needs_input_grad)), None)
 
 
 def batched_loglike(a, b, c, d, t, y, sigma2, dt=None):
-    """Batched celerite log-likelihood, (B,).
+    """Batched celerite log-likelihood, (B,), differentiable.
 
     a, b, c, d: (B, J); t: (N,) sorted times shared by the chains;
     y, sigma2: (B, N); dt: optional (N-1,) host-f64 spacings (cast to
-    the working dtype). CUDA tensors run the hand-written kernel (or
-    raise); CPU tensors run :func:`batched_loglike_plain`. -inf where
-    the factorisation is not positive definite.
+    the working dtype, no gradient). CUDA tensors run the hand-written
+    kernels (or raise); CPU tensors their plain versions. With no input
+    requiring a gradient this is one forward kernel (K1) that saves
+    nothing; otherwise K3 saves the residual tables and the backward
+    runs K4. -inf where the factorisation is not positive definite,
+    with a zero gradient there.
     """
-    return _BatchedLoglike.apply(a, b, c, d, t, y, sigma2, dt)
+    args = (a, b, c, d, t, y, sigma2)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return _BatchedLoglike.apply(*args, dt)
+    return _forward(*args, dt)

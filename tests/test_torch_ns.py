@@ -97,7 +97,7 @@ def test_ns_step_bookkeeping_matches_jax(jax_states):
     replacements differ."""
     s3, s4 = jax_states
     dead_u_before = s3[6].copy()
-    state = ns_state_from_numpy(s3)
+    state = ns_state_from_numpy(s3, device="cpu")
     step = tns._make_ns_step(_tloglike, K, D, DIM, torch.float64, 2, "slice", 4, 8)
     out = step(state)
     # the step writes its own copy of the dead buffers, not the caller's arrays
@@ -116,7 +116,7 @@ def test_ns_step_bookkeeping_matches_jax(jax_states):
 def test_ns_finalize_and_resampling_match_jax(jax_states):
     _, s4 = jax_states
     ref = jns._ns_finalize(tuple(jnp.asarray(x) for x in s4), K, D)
-    res = tns._ns_finalize(ns_state_from_numpy(s4), K, D)
+    res = tns._ns_finalize(ns_state_from_numpy(s4, device="cpu"), K, D)
     assert res.num_dead == int(ref.num_dead) and res.num_iters == int(ref.num_iters)
     for name in ("logZ", "logZ_err", "H", "logl_max", "dead_logl", "dead_logw", "dead_u"):
         np.testing.assert_allclose(getattr(res, name).numpy(), np.asarray(getattr(ref, name)),
@@ -132,11 +132,11 @@ def test_ns_finalize_and_resampling_match_jax(jax_states):
 def test_ns_state_from_numpy_layout(jax_states):
     s3, _ = jax_states
     gen = torch.Generator().manual_seed(9)
-    st = ns_state_from_numpy(s3, generator=gen)
+    st = ns_state_from_numpy(s3, generator=gen, device="cpu")
     assert st[5] is gen and isinstance(st[4], int) and isinstance(st[11], int)
     assert st[6].shape == (MAX_ITERS * D + K, DIM) and st[6].dtype == torch.float64
     with pytest.raises(ValueError, match="13 entries"):
-        ns_state_from_numpy(s3[:12])
+        ns_state_from_numpy(s3[:12], device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["uniform", "biased", "padded"])
