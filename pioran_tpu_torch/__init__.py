@@ -8,8 +8,10 @@ celerite kernel algebra, the PSD -> celerite approximation, the priors,
 the batched celerite log-likelihood and its gradient (hand-written CUDA
 kernels on the card, their plain PyTorch versions on the CPU), nested
 sampling, ChEES-HMC, ADVI and the flagship single-bending model with
-``run_inference(sampler="ns" | "chees" | "advi")``. Entry points run on
-the card unless given ``device="cpu"``.
+``run_inference(sampler="ns" | "chees" | "advi")``, and the multi-dataset
+axis: ``run_inference_many`` over ragged light curves on the ragged
+batched likelihood ``batched_loglike_multi``. Entry points run on the
+card unless given ``device="cpu"``.
 """
 
 from .config import require_cuda
@@ -39,6 +41,12 @@ from .priors import (
     ThreeUniformDependent,
     TwoLogUniformDependent,
 )
-from .inference import advi_seeded_inits, single_bending_model, run_inference
+from .ops.cuda_celerite import batched_loglike, batched_loglike_multi
+from .inference import (
+    advi_seeded_inits,
+    single_bending_model,
+    run_inference,
+    run_inference_many,
+)
 
 __version__ = "0.5.0"

@@ -1,8 +1,9 @@
 """Carry parameters and sampler state across from numpy.
 
 The port's tests feed the JAX package and this one the same inputs:
-the JAX side's prior sets, sampler states and kernel coefficients are
-converted to numpy there and rebuilt here with these helpers.
+the JAX side's prior sets, sampler states, kernel coefficients and
+ragged multi-dataset arrays are converted to numpy there and rebuilt
+here with these helpers.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from . import priors
 from .config import DEFAULT_DTYPE, resolve_device
 from .models.kernels import CeleriteKernel
 
-__all__ = ["prior_set_from_numpy", "ns_state_from_numpy", "coefficients_from_numpy"]
+__all__ = ["prior_set_from_numpy", "ns_state_from_numpy", "coefficients_from_numpy",
+           "multi_inputs_from_numpy"]
 
 
 def prior_set_from_numpy(
@@ -66,3 +68,18 @@ def coefficients_from_numpy(a, b, c, d, device=None,
     dev = resolve_device(device)
     return CeleriteKernel(*(torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
                             for x in (a, b, c, d)))
+
+
+def multi_inputs_from_numpy(T, DT, Y, E, n_valid, device=None,
+                            dtype: torch.dtype = DEFAULT_DTYPE) -> tuple:
+    """The ragged multi-dataset arrays as the port's tensors, on the card
+    unless ``device="cpu"``.
+
+    T (D, N) edge-padded times, DT (D, N-1) spacings (computed in float64
+    on the host, trailing zeros on the padding), Y and E (D, N) fluxes and
+    errors padded with 1.0, n_valid (D,) lengths: returns (T, DT, Y, E)
+    as ``dtype`` tensors and n_valid as int32.
+    """
+    dev = resolve_device(device)
+    out = [torch.as_tensor(np.asarray(x), device=dev).to(dtype) for x in (T, DT, Y, E)]
+    return (*out, torch.as_tensor(np.asarray(n_valid), device=dev).to(torch.int32))

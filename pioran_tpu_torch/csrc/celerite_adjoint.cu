@@ -4,8 +4,10 @@
 // K3 replaces the TPU kernel `_fwd_aug_kernel` (launched by `_fwd_aug_call`
 // / `fwd_aug_pallas`) and K4 the TPU kernel `_bwd_kernel` (launched by
 // `_bwd_call` / `bwd_pallas`), both in pioran_tpu/ops/pallas_celerite_vjp.py,
-// for a time grid shared by the chains. Per chain, with T made explicit
-// (J x J blocks e, h in {0, 1}; S10 = S01^T):
+// in both of their forms: a time grid shared by the chains, and per-chain
+// ragged grids (`per_lane_t=True`, the adjoint of the multi-dataset K2).
+// Per chain, with T made explicit (J x J blocks e, h in {0, 1};
+// S10 = S01^T):
 //
 //   T^{eh}_m = S^{eh}_{m-1} + D_{m-1} W^e_{m-1} (W^h_{m-1})^T
 //   S^{eh}_m = (ec_m ec_m^T) o T^{eh}_m
@@ -60,13 +62,26 @@
 // writes exact zeros and does no work, so a non-positive-definite chain,
 // whose tables may hold inf or NaN, yields a zero gradient.
 //
+// Per-lane grids (compile-time flag PerLaneT): t, dt are read from the
+// chain's own rows (t + chain N, dt + chain (N - 1)) and a step m counts
+// only when m < n_valid[chain] ("live"). K3 masks its Kahan sums and min D
+// by live and uses n_valid log 2 pi; K4 seeds the loss only on live steps.
+// The padded steps past n_valid still run (dt = 0 and sigma2 = 1 there, so
+// D > 0); in K4 their cotangents are exact zeros, because nothing after
+// them seeds the carry. K4 writes the t and dt partials per chain either
+// way; the wrapper folds them per chain (per-lane) or over the chains
+// (shared). With the flag off, live is the constant true and the kernels'
+// instruction streams are those of the shared-grid kernels.
+//
 // Numerics as in K1: Kahan sums with __fadd_rn/__fsub_rn (__dadd_rn/
 // __dsub_rn), no --use_fast_math, and CUDA's expf/exp for exp(-c dt) in
 // place of the TPU's exp_neg.
 //
-// C interface (bound with ctypes): celerite_fwd_aug_{f32,f64} and
-// celerite_bwd_{f32,f64} launch on the given stream, never synchronise,
-// and return cudaGetLastError() as an int.
+// C interface (bound with ctypes): celerite_fwd_aug_{f32,f64},
+// celerite_bwd_{f32,f64} and their per-lane forms
+// celerite_fwd_aug_multi_{f32,f64} and celerite_bwd_multi_{f32,f64} (one
+// more argument, the int32 n_valid) launch on the given stream, never
+// synchronise, and return cudaGetLastError() as an int.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -135,12 +150,14 @@ __device__ __forceinline__ T step_dt(const T* t, const T* dt, int n) {
 // ---------------------------------------------------------------------------
 
 // JP: compile-time row capacity (>= J, <= 32); columns j >= J are zero.
-template <typename T, int JP>
+// PerLaneT: per-chain t (B, N), dt (B, N - 1) and n_valid (B,).
+template <typename T, int JP, bool PerLaneT>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
                const T* __restrict__ c, const T* __restrict__ d,
                const T* __restrict__ t, const T* __restrict__ dt,
                const T* __restrict__ y, const T* __restrict__ s2,
+               const int* __restrict__ n_valid,
                T* __restrict__ out, T* __restrict__ W0t, T* __restrict__ W1t,
                T* __restrict__ P0t, T* __restrict__ P1t, T* __restrict__ Dt,
                T* __restrict__ ZPt, T* __restrict__ Tcp,
@@ -148,6 +165,12 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int lane = threadIdx.x & 31;
   const int chain = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (chain >= B) return;  // the ragged batch edge: whole warps leave
+  int nv = N;  // steps that count
+  if (PerLaneT) {  // this chain's own rows of t and dt
+    t += static_cast<long long>(chain) * N;
+    if (dt) dt += static_cast<long long>(chain) * (N - 1);
+    nv = n_valid[chain];
+  }
 
   const bool row = lane < J;
   const long long cj = static_cast<long long>(chain) * J + lane;
@@ -259,9 +282,10 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
       f1 = f1n;
       Dp = Dn;
       zpp = zpn;
-      kahan_add(logdet, clog, Ops<T>::log_(Ops<T>::abs_(Dn)));
-      kahan_add(quad, cquad, zpn * zpn / Dn);
-      minD = Dn < minD ? Dn : minD;
+      const bool live = !PerLaneT || n < nv;
+      kahan_add(logdet, clog, live ? Ops<T>::log_(Ops<T>::abs_(Dn)) : T(0));
+      kahan_add(quad, cquad, live ? zpn * zpn / Dn : T(0));
+      minD = (live && Dn < minD) ? Dn : minD;
     }
     if (lane < nk) {
       Dt[cN + base + lane] = D_k;
@@ -270,7 +294,7 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 
   if (lane == 0) {
-    const T ll = T(-0.5) * (logdet + quad + static_cast<T>(N) * T(kLog2Pi));
+    const T ll = T(-0.5) * (logdet + quad + static_cast<T>(nv) * T(kLog2Pi));
     const bool ok = (minD > T(0)) && isfinite(ll);
     out[chain] = ok ? ll : T(-INFINITY);
   }
@@ -280,12 +304,12 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
 // K4: reverse sweep
 // ---------------------------------------------------------------------------
 
-template <typename T, int JP>
+template <typename T, int JP, bool PerLaneT>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
            const T* __restrict__ c, const T* __restrict__ d,
            const T* __restrict__ t, const T* __restrict__ dt,
-           const T* __restrict__ g,
+           const T* __restrict__ g, const int* __restrict__ n_valid,
            const T* __restrict__ W0t, const T* __restrict__ W1t,
            const T* __restrict__ P0t, const T* __restrict__ P1t,
            const T* __restrict__ Dt, const T* __restrict__ ZPt,
@@ -308,6 +332,12 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
       ybar[cN + n] = s2bar[cN + n] = tb[cN + n] = dtb[cN + n] = T(0);
     }
     return;
+  }
+  int nv = N;  // steps that count
+  if (PerLaneT) {  // this chain's own rows of t and dt
+    t += static_cast<long long>(chain) * N;
+    if (dt) dt += static_cast<long long>(chain) * (N - 1);
+    nv = n_valid[chain];
   }
   const T ai = row ? a[cj] : T(0);
   const T bi = row ? b[cj] : T(0);
@@ -413,9 +443,11 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
       T zpbar = cp0 * W0 + cp1 * W1;
       warp_sum2(Dbar, zpbar);
 
-      // loss seeds, scaled by the chain's cotangent
-      Dbar -= T(0.5) * gl * (T(1) / Dm - zpm * zpm / (Dm * Dm));
-      zpbar -= gl * zpm / Dm;
+      // loss seeds, scaled by the chain's cotangent, on the live steps
+      if (!PerLaneT || m < nv) {
+        Dbar -= T(0.5) * gl * (T(1) / Dm - zpm * zpm / (Dm * Dm));
+        zpbar -= gl * zpm / Dm;
+      }
 
       // zp = y - U0.f0 - U1.f1, f = ec o pre
       T U0bar = -zpbar * (ec * pre0);
@@ -503,18 +535,20 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <typename T>
+template <typename T, bool PerLaneT>
 int launch_fwd_aug(const T* a, const T* b, const T* c, const T* d, const T* t,
-                   const T* dt, const T* y, const T* s2, T* out, T* W0t, T* W1t,
-                   T* P0t, T* P1t, T* Dt, T* ZPt, T* Tcp, int B, int J, int N,
-                   int kc, cudaStream_t stream) {
-  if (J < 1 || J > 32 || kc < 1) return static_cast<int>(cudaErrorInvalidValue);
+                   const T* dt, const T* y, const T* s2, const int* n_valid,
+                   T* out, T* W0t, T* W1t, T* P0t, T* P1t, T* Dt, T* ZPt, T* Tcp,
+                   int B, int J, int N, int kc, cudaStream_t stream) {
+  if (J < 1 || J > 32 || kc < 1 || (PerLaneT && n_valid == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
 #define PIORAN_FWD_AUG(JP)                                                     \
-  fwd_aug_kernel<T, JP><<<grid, block, 0, stream>>>(                          \
-      a, b, c, d, t, dt, y, s2, out, W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, B, J, N, kc)
+  fwd_aug_kernel<T, JP, PerLaneT><<<grid, block, 0, stream>>>(                \
+      a, b, c, d, t, dt, y, s2, n_valid, out, W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, \
+      B, J, N, kc)
   if (J <= 8) {
     PIORAN_FWD_AUG(8);
   } else if (J <= 16) {
@@ -528,20 +562,22 @@ int launch_fwd_aug(const T* a, const T* b, const T* c, const T* d, const T* t,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool PerLaneT>
 int launch_bwd(const T* a, const T* b, const T* c, const T* d, const T* t,
-               const T* dt, const T* g, const T* W0t, const T* W1t, const T* P0t,
-               const T* P1t, const T* Dt, const T* ZPt, const T* Tcp, T* scratch,
-               T* abar, T* bbar, T* cbar, T* dbar, T* ybar, T* s2bar, T* tb,
-               T* dtb, int B, int J, int N, int kc, cudaStream_t stream) {
-  if (J < 1 || J > 32 || kc < 1) return static_cast<int>(cudaErrorInvalidValue);
+               const T* dt, const T* g, const int* n_valid, const T* W0t,
+               const T* W1t, const T* P0t, const T* P1t, const T* Dt,
+               const T* ZPt, const T* Tcp, T* scratch, T* abar, T* bbar,
+               T* cbar, T* dbar, T* ybar, T* s2bar, T* tb, T* dtb, int B, int J,
+               int N, int kc, cudaStream_t stream) {
+  if (J < 1 || J > 32 || kc < 1 || (PerLaneT && n_valid == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
 #define PIORAN_BWD(JP)                                                         \
-  bwd_kernel<T, JP><<<grid, block, 0, stream>>>(                              \
-      a, b, c, d, t, dt, g, W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, scratch, abar,   \
-      bbar, cbar, dbar, ybar, s2bar, tb, dtb, B, J, N, kc)
+  bwd_kernel<T, JP, PerLaneT><<<grid, block, 0, stream>>>(                    \
+      a, b, c, d, t, dt, g, n_valid, W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, scratch, \
+      abar, bbar, cbar, dbar, ybar, s2bar, tb, dtb, B, J, N, kc)
   if (J <= 8) {
     PIORAN_BWD(8);
   } else if (J <= 16) {
@@ -559,24 +595,54 @@ int launch_bwd(const T* a, const T* b, const T* c, const T* d, const T* t,
 
 extern "C" {
 
+// the shared-grid entries pass no n_valid; the per-lane ones take it
+// after s2 (K3) or g (K4)
+#define PIORAN_FWD_AUG_BODY(T, PER_LANE, NV)                                     \
+    return launch_fwd_aug<T, PER_LANE>(                                          \
+        static_cast<const T*>(a), static_cast<const T*>(b),                      \
+        static_cast<const T*>(c), static_cast<const T*>(d),                      \
+        static_cast<const T*>(t), static_cast<const T*>(dt),                     \
+        static_cast<const T*>(y), static_cast<const T*>(s2), NV,                 \
+        static_cast<T*>(out), static_cast<T*>(W0t), static_cast<T*>(W1t),        \
+        static_cast<T*>(P0t), static_cast<T*>(P1t), static_cast<T*>(Dt),         \
+        static_cast<T*>(ZPt), static_cast<T*>(Tcp), B, J, N, kc,                 \
+        static_cast<cudaStream_t>(stream));
+
 #define PIORAN_FWD_AUG_ENTRY(NAME, T)                                            \
   int NAME(const void* a, const void* b, const void* c, const void* d,          \
            const void* t, const void* dt, const void* y, const void* s2,        \
            void* out, void* W0t, void* W1t, void* P0t, void* P1t, void* Dt,     \
            void* ZPt, void* Tcp, int B, int J, int N, int kc, void* stream) {   \
-    return launch_fwd_aug<T>(                                                    \
-        static_cast<const T*>(a), static_cast<const T*>(b),                      \
-        static_cast<const T*>(c), static_cast<const T*>(d),                      \
-        static_cast<const T*>(t), static_cast<const T*>(dt),                     \
-        static_cast<const T*>(y), static_cast<const T*>(s2),                     \
-        static_cast<T*>(out), static_cast<T*>(W0t), static_cast<T*>(W1t),        \
-        static_cast<T*>(P0t), static_cast<T*>(P1t), static_cast<T*>(Dt),         \
-        static_cast<T*>(ZPt), static_cast<T*>(Tcp), B, J, N, kc,                 \
-        static_cast<cudaStream_t>(stream));                                      \
+    PIORAN_FWD_AUG_BODY(T, false, nullptr)                                       \
+  }
+
+#define PIORAN_FWD_AUG_MULTI_ENTRY(NAME, T)                                      \
+  int NAME(const void* a, const void* b, const void* c, const void* d,          \
+           const void* t, const void* dt, const void* y, const void* s2,        \
+           const void* n_valid, void* out, void* W0t, void* W1t, void* P0t,     \
+           void* P1t, void* Dt, void* ZPt, void* Tcp, int B, int J, int N,      \
+           int kc, void* stream) {                                              \
+    PIORAN_FWD_AUG_BODY(T, true, static_cast<const int*>(n_valid))               \
   }
 
 PIORAN_FWD_AUG_ENTRY(celerite_fwd_aug_f32, float)
 PIORAN_FWD_AUG_ENTRY(celerite_fwd_aug_f64, double)
+PIORAN_FWD_AUG_MULTI_ENTRY(celerite_fwd_aug_multi_f32, float)
+PIORAN_FWD_AUG_MULTI_ENTRY(celerite_fwd_aug_multi_f64, double)
+
+#define PIORAN_BWD_BODY(T, PER_LANE, NV)                                         \
+    return launch_bwd<T, PER_LANE>(                                              \
+        static_cast<const T*>(a), static_cast<const T*>(b),                      \
+        static_cast<const T*>(c), static_cast<const T*>(d),                      \
+        static_cast<const T*>(t), static_cast<const T*>(dt),                     \
+        static_cast<const T*>(g), NV, static_cast<const T*>(W0t),                \
+        static_cast<const T*>(W1t), static_cast<const T*>(P0t),                  \
+        static_cast<const T*>(P1t), static_cast<const T*>(Dt),                   \
+        static_cast<const T*>(ZPt), static_cast<const T*>(Tcp),                  \
+        static_cast<T*>(scratch), static_cast<T*>(abar), static_cast<T*>(bbar),  \
+        static_cast<T*>(cbar), static_cast<T*>(dbar), static_cast<T*>(ybar),     \
+        static_cast<T*>(s2bar), static_cast<T*>(tb), static_cast<T*>(dtb), B, J, \
+        N, kc, static_cast<cudaStream_t>(stream));
 
 #define PIORAN_BWD_ENTRY(NAME, T)                                                \
   int NAME(const void* a, const void* b, const void* c, const void* d,          \
@@ -585,22 +651,24 @@ PIORAN_FWD_AUG_ENTRY(celerite_fwd_aug_f64, double)
            const void* ZPt, const void* Tcp, void* scratch, void* abar,         \
            void* bbar, void* cbar, void* dbar, void* ybar, void* s2bar,         \
            void* tb, void* dtb, int B, int J, int N, int kc, void* stream) {    \
-    return launch_bwd<T>(                                                        \
-        static_cast<const T*>(a), static_cast<const T*>(b),                      \
-        static_cast<const T*>(c), static_cast<const T*>(d),                      \
-        static_cast<const T*>(t), static_cast<const T*>(dt),                     \
-        static_cast<const T*>(g), static_cast<const T*>(W0t),                    \
-        static_cast<const T*>(W1t), static_cast<const T*>(P0t),                  \
-        static_cast<const T*>(P1t), static_cast<const T*>(Dt),                   \
-        static_cast<const T*>(ZPt), static_cast<const T*>(Tcp),                  \
-        static_cast<T*>(scratch), static_cast<T*>(abar), static_cast<T*>(bbar),  \
-        static_cast<T*>(cbar), static_cast<T*>(dbar), static_cast<T*>(ybar),     \
-        static_cast<T*>(s2bar), static_cast<T*>(tb), static_cast<T*>(dtb), B, J, \
-        N, kc, static_cast<cudaStream_t>(stream));                               \
+    PIORAN_BWD_BODY(T, false, nullptr)                                           \
+  }
+
+#define PIORAN_BWD_MULTI_ENTRY(NAME, T)                                          \
+  int NAME(const void* a, const void* b, const void* c, const void* d,          \
+           const void* t, const void* dt, const void* g, const void* n_valid,   \
+           const void* W0t, const void* W1t, const void* P0t, const void* P1t,  \
+           const void* Dt, const void* ZPt, const void* Tcp, void* scratch,     \
+           void* abar, void* bbar, void* cbar, void* dbar, void* ybar,          \
+           void* s2bar, void* tb, void* dtb, int B, int J, int N, int kc,       \
+           void* stream) {                                                      \
+    PIORAN_BWD_BODY(T, true, static_cast<const int*>(n_valid))                   \
   }
 
 PIORAN_BWD_ENTRY(celerite_bwd_f32, float)
 PIORAN_BWD_ENTRY(celerite_bwd_f64, double)
+PIORAN_BWD_MULTI_ENTRY(celerite_bwd_multi_f32, float)
+PIORAN_BWD_MULTI_ENTRY(celerite_bwd_multi_f64, double)
 
 const char* celerite_adjoint_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -5,10 +5,12 @@ What is ported: the flagship single-bending power-law model
 ``sampler="ns"``, ``"chees"`` (ChEES-HMC, optionally seeded by
 :func:`advi_seeded_inits`) and ``"advi"``, which write their results in
 the ultranest layout (``chains/equal_weighted_post.txt``,
-``info/results.json``). The likelihood of a batch of parameter vectors
-is one batched PSD -> celerite approximation (plain PyTorch) feeding the
-CUDA celerite kernels on the card (K1 without a gradient, K3 and K4 with
-one), or their plain versions on the CPU.
+``info/results.json``); and :func:`run_inference_many`, which fits the
+single-bending model to many ragged light curves as one ChEES ensemble.
+The likelihood of a batch of parameter vectors is one batched PSD ->
+celerite approximation (plain PyTorch) feeding the CUDA celerite kernels
+on the card (K1 or, for ragged per-chain grids, K2 without a gradient;
+K3 and K4 with one), or their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -18,15 +20,16 @@ import math
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import DEFAULT_DTYPE, resolve_device
+from .convert import multi_inputs_from_numpy
 from .models.psd import SingleBendingPowerLaw
 from .ops.approx import approx
-from .ops.cuda_celerite import batched_loglike
+from .ops.cuda_celerite import batched_loglike, batched_loglike_multi
 from .priors import (
     Gamma,
     LogNormal,
@@ -42,7 +45,7 @@ from .utils.insertion import insertion_order_test
 from .utils.mcmc_stats import summarize_chains
 
 __all__ = ["GPModelSpec", "single_bending_model", "advi_seeded_inits",
-           "run_inference"]
+           "run_inference", "run_inference_many"]
 
 # samplers of the JAX package that are not ported yet, with the ROADMAP
 # item that ports them
@@ -100,6 +103,28 @@ def _batched_loglike_from_coeffs(coeff_fn, t, dt=None):
         return batched_loglike(a, b, c, d, t, yv, s2, dt)
 
     return loglike_batch
+
+
+def _write_ultranest(log_dir, names, theta, results):
+    """``chains/equal_weighted_post.txt`` (a header of the names, then the
+    draws) and ``info/results.json`` under ``log_dir``."""
+    os.makedirs(os.path.join(log_dir, "chains"), exist_ok=True)
+    os.makedirs(os.path.join(log_dir, "info"), exist_ok=True)
+    with open(os.path.join(log_dir, "chains", "equal_weighted_post.txt"), "w") as fh:
+        fh.write(" ".join(names) + "\n")
+        np.savetxt(fh, theta)
+    with open(os.path.join(log_dir, "info", "results.json"), "w") as fh:
+        json.dump(results, fh, indent=2, ensure_ascii=False)
+
+
+def _posterior_summary(theta):
+    return {
+        "mean": theta.mean(axis=0).tolist(),
+        "stdev": theta.std(axis=0).tolist(),
+        "median": np.median(theta, axis=0).tolist(),
+        "errlo": np.quantile(theta, 0.158655, axis=0).tolist(),
+        "errup": np.quantile(theta, 0.841345, axis=0).tolist(),
+    }
 
 
 def _freq_range(t):
@@ -396,13 +421,7 @@ def run_inference(
         "paramnames": spec.names,
         "sampler": sampler,
         "elapsed_s": elapsed,
-        "posterior": {
-            "mean": theta.mean(axis=0).tolist(),
-            "stdev": theta.std(axis=0).tolist(),
-            "median": np.median(theta, axis=0).tolist(),
-            "errlo": np.quantile(theta, 0.158655, axis=0).tolist(),
-            "errup": np.quantile(theta, 0.841345, axis=0).tolist(),
-        },
+        "posterior": _posterior_summary(theta),
         "maximum_likelihood": {
             "logl": float(np.max(loglikes)),
             "point": theta[int(np.argmax(loglikes))].tolist(),
@@ -413,18 +432,190 @@ def run_inference(
         results["ess_per_s"] = float(results["ess"]) / elapsed
 
     if log_dir:
-        os.makedirs(os.path.join(log_dir, "chains"), exist_ok=True)
-        os.makedirs(os.path.join(log_dir, "info"), exist_ok=True)
         # cap the written posterior at 20k equal-weighted rows
         theta_out = theta
         if theta.shape[0] > 20000:
             sel = np.random.default_rng(0).choice(
                 theta.shape[0], 20000, replace=False)
             theta_out = theta[np.sort(sel)]
-        with open(os.path.join(log_dir, "chains", "equal_weighted_post.txt"), "w") as fh:
-            fh.write(" ".join(spec.names) + "\n")
-            np.savetxt(fh, theta_out)
-        with open(os.path.join(log_dir, "info", "results.json"), "w") as fh:
-            json.dump(results, fh, indent=2, ensure_ascii=False)
+        _write_ultranest(log_dir, spec.names, theta_out, results)
     results["samples"] = theta
+    return results
+
+
+class _ManyModel(NamedTuple):
+    """The single-bending model over D ragged light curves: ``loglike_batch``
+    maps (D C, 6) theta rows, for any C, dataset-major (rows d C .. d C +
+    C - 1 belong to dataset d), to (D C,) likelihoods, and
+    ``logpost_batch`` (D C, 6) unconstrained rows to log-posteriors.
+    theta = (alpha_1, alpha_2, f_1, variance, nu, mu_std), with each
+    dataset's mu = xbar[d] + sd5[d] mu_std. ``data`` holds the padded
+    (T, DT, Y, E, n_valid) per dataset, as ``convert.multi_inputs_from_numpy``
+    returns them."""
+
+    prior: PriorSet
+    loglike_batch: Callable
+    logpost_batch: Callable
+    xbar: np.ndarray
+    sd5: np.ndarray
+    f_min: float
+    f_max: float
+    data: Tuple[torch.Tensor, ...]
+
+
+def _many_model(datasets: Sequence[Tuple], n_components: int = 20,
+                basis_function: str = "SHO", S_low: float = 20.0, S_high: float = 20.0,
+                device=None, dtype: torch.dtype = DEFAULT_DTYPE) -> _ManyModel:
+    """The model :func:`run_inference_many` samples (see there)."""
+    dev = resolve_device(device)
+    Ns = [len(ds[0]) for ds in datasets]
+    Nmax = max(Ns)
+
+    def pad(x, fill):
+        x = np.asarray(x, np.float64)
+        return np.concatenate([x, np.full(Nmax - len(x), x[-1] if fill == "edge" else fill)])
+
+    # times edge-padded; spacings in host f64 (trailing zeros on the
+    # padding), cast after the diff; fluxes and errors padded with 1
+    T = np.stack([pad(ds[0], "edge") for ds in datasets])
+    T, DT, Y, E, NV = multi_inputs_from_numpy(
+        T, np.diff(T, axis=1), np.stack([pad(ds[1], 1.0) for ds in datasets]),
+        np.stack([pad(ds[2], 1.0) for ds in datasets]), Ns, device=dev, dtype=dtype)
+    logy = [np.log(np.asarray(ds[1])) for ds in datasets]
+    xbar = np.asarray([float(np.mean(x)) for x in logy])
+    sd5 = np.asarray([5.0 * float(np.std(x)) for x in logy])
+
+    f_min = min(1.0 / float(ds[0][-1] - ds[0][0]) for ds in datasets)
+    f_max = max(1.0 / float(np.min(np.diff(np.asarray(ds[0])))) / 2.0 for ds in datasets)
+    min_f_b, max_f_b = f_min / 20.0 * 4.0, f_max * 20.0 / 4.0
+    # one prior for every dataset: the global f band and a standardized mu
+    prior = PriorSet([
+        ("alphas", TwoUniformDependent(0.0, 1.5, 4.0)),
+        ("f_1", LogUniform(min_f_b, max_f_b)),
+        ("variance", LogNormal(2 * -1.5, np.sqrt(2.0) * 1.0)),
+        ("nu", Gamma(2.0, 0.5)),
+        ("mu_std", Normal(0.0, 1.0)),
+    ])
+    YN = torch.log(Y)
+    xbar_t = torch.as_tensor(xbar, device=dev).to(dtype)
+    sd5_t = torch.as_tensor(sd5, device=dev).to(dtype)
+    D = len(datasets)
+
+    def loglike_batch(TH):
+        # every row's own copy of its dataset's arrays
+        rows = torch.repeat_interleave(torch.arange(D, device=dev), TH.shape[0] // D)
+        a1, a2, f1, var, nu, mu_std = (TH[:, i] for i in range(6))
+        kern = approx(SingleBendingPowerLaw(a1, f1, a2), f_min, f_max, n_components,
+                      var, S_low, S_high, basis_function=basis_function)
+        a, b, c, d = kern.coefficients()
+        mu = xbar_t[rows] + sd5_t[rows] * mu_std
+        s2 = nu[:, None] * E[rows] ** 2 / Y[rows] ** 2
+        return batched_loglike_multi(a, b, c, d, T[rows], YN[rows] - mu[:, None], s2,
+                                     NV[rows], DT[rows])
+
+    def logpost_batch(Z):
+        return prior.unconstrained_logpdf(Z) + loglike_batch(prior.from_unconstrained(Z))
+
+    return _ManyModel(prior, loglike_batch, logpost_batch, xbar, sd5, f_min, f_max,
+                      (T, DT, Y, E, NV))
+
+
+def run_inference_many(
+    datasets: Sequence[Tuple],
+    sampler: str = "chees",
+    seed: int = 0,
+    num_chains: int = 64,
+    num_warmup: int = 500,
+    num_samples: int = 500,
+    n_components: int = 20,
+    basis_function: str = "SHO",
+    S_low: float = 20.0,
+    S_high: float = 20.0,
+    max_leapfrogs: int = 128,
+    log_dir: Optional[str] = None,
+    mesh=None,
+    mesh_axis="chains",
+    device=None,
+    dtype: torch.dtype = DEFAULT_DTYPE,
+) -> List[Dict]:
+    """Fit the single-bending model to many light curves in one ensemble.
+
+    ``datasets``: (t, y, yerr) arrays whose lengths may differ. The D
+    datasets x ``num_chains`` chains run as one ChEES-HMC ensemble of
+    B = D C chains, whose likelihood
+    is one ragged batched call with per-chain time grids
+    (:func:`~pioran_tpu_torch.ops.cuda_celerite.batched_loglike_multi`:
+    per-lane K3 and K4 on the card). One prior serves every dataset: the
+    bend-frequency bounds use the global [min f_min, max f_max] band, and
+    theta carries a standardized mu_std ~ N(0, 1) with each dataset's
+    mu = xbar_d + 5 sd_d mu_std (the mean and standard deviation of its
+    log flux), an exact reparametrization of mu ~ N(xbar_d, 5 sd_d).
+
+    The chains start from prior draws and ChEES adapts one diagonal
+    metric, one step size and one trajectory length over all B chains.
+    Prior draws can leave chains on the flat f_1 plateaus of the
+    single-bending likelihood, as they do for :func:`run_inference`; the
+    per-dataset r̂ and ``converged`` show which fits that left unmixed.
+
+    Returns one results dict per dataset, with mu in the dataset's own
+    units, split-r̂ and bulk/tail ESS, ``ncall`` (every leapfrog of the
+    run times the dataset's C chains) and ``converged`` (r̂_max < 1.05);
+    with ``log_dir``, writes each dataset's ultranest layout under
+    ``log_dir/ds{i}/``. Random numbers come from one ``torch.Generator``
+    on ``device`` (default: the card) seeded with ``seed``. Only
+    ``sampler="chees"`` exists; ``mesh`` raises ``NotImplementedError``
+    until ``parallel/`` is ported.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_inference_many(mesh=...) is not ported to pioran_tpu_torch yet: "
+            "the multi-device paths come with parallel/ (ROADMAP queue 1, step 13)")
+    if sampler != "chees":
+        raise ValueError(f"run_inference_many runs ChEES-HMC only, got sampler={sampler!r}")
+    model = _many_model(datasets, n_components, basis_function, S_low, S_high,
+                        device=device, dtype=dtype)
+    prior = model.prior
+    D, C = len(datasets), num_chains
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z0 = prior.to_unconstrained(prior.sample((D * C,), generator=gen, dtype=dtype, device=dev))
+    t0 = time.time()
+    samples_z, stats = run_chees(model.logpost_batch, z0, gen, num_warmup=num_warmup,
+                                 num_samples=num_samples, max_leapfrogs=max_leapfrogs)
+    elapsed = time.time() - t0
+
+    with torch.no_grad():
+        TH = prior.from_unconstrained(samples_z).cpu().numpy()
+    S = TH.shape[0]
+    TH = TH.reshape(S, D, C, 6).transpose(1, 2, 0, 3)  # (D, C, S, 6)
+    names = ["α₁", "α₂", "f₁", "variance", "ν", "μ"]
+    # every leapfrog evaluates value+gradient for each dataset's C chains
+    ncall = int(stats["n_leapfrogs"].sum()) * C
+    results = []
+    for i in range(D):
+        chains = TH[i].copy()  # (C, S, 6)
+        chains[..., 5] = model.xbar[i] + model.sd5[i] * chains[..., 5]
+        th = chains.reshape(C * S, 6)
+        conv = summarize_chains(chains)
+        ess_b = np.asarray(conv["ess_bulk"], np.float64)
+        ess_min = float(np.nanmin(ess_b)) if np.any(np.isfinite(ess_b)) else float("nan")
+        rhat = np.asarray(conv["rhat"], np.float64)
+        res = {
+            "paramnames": names,
+            "sampler": sampler,
+            "elapsed_s": elapsed,
+            "posterior": _posterior_summary(th),
+            "rhat": conv["rhat"],
+            "ess_bulk": conv["ess_bulk"],
+            "ess_tail": conv["ess_tail"],
+            "ess": ess_min,
+            "ess_per_s": ess_min / elapsed if elapsed > 0 else float("nan"),
+            "ncall": ncall,
+            "converged": (bool(np.nanmax(rhat) < 1.05)
+                          if np.any(np.isfinite(rhat)) else False),
+        }
+        if log_dir:
+            _write_ultranest(os.path.join(log_dir, f"ds{i}"), names, th, res)
+        res["samples"] = th
+        results.append(res)
     return results

@@ -5,8 +5,8 @@ The accurate float32 ``exp_neg``, the U/V/phi table build, the blocked
 log-likelihood ``logl``: Python loops over N on (..., R, R) tensors,
 batched over leading chain axes. Slow but exact, and differentiable by
 autograd, which makes them the oracle the adjoint kernels are tested
-against. ``logl_masked`` comes with the ragged multi-dataset kernel;
-simulate/predict with the GP object API.
+against; ``logl_masked`` is the ragged multi-dataset oracle.
+simulate/predict come with the GP object API.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 
 __all__ = ["CeleriteUV", "exp_neg", "build_uv", "stable_sum",
-           "celerite_factor_solve", "logl"]
+           "celerite_factor_solve", "logl", "logl_masked"]
 
 
 class CeleriteUV(NamedTuple):
@@ -75,13 +75,14 @@ def exp_neg(u):
 
 def build_uv(a, b, c, d, t, dt=None) -> CeleriteUV:
     """U, V, phi tables of shape (..., N, 2J) for coefficients (..., J)
-    and times t (N,).
+    and times t (N,) or per-row times t (..., N).
 
-    ``dt`` (optional, (N-1,)): consecutive spacings computed in float64
-    on the host for long dense series; ``diff`` of a float32 grid loses
-    about log2(N) bits when the span is about N times the spacing.
+    ``dt`` (optional, (N-1,) or (..., N-1)): consecutive spacings computed
+    in float64 on the host for long dense series; ``diff`` of a float32
+    grid loses about log2(N) bits when the span is about N times the
+    spacing.
     """
-    td = t[:, None] * d[..., None, :]  # (..., N, J)
+    td = t[..., :, None] * d[..., None, :]  # (..., N, J)
     co = torch.cos(td)
     si = torch.sin(td)
     a_, b_ = a[..., None, :], b[..., None, :]
@@ -90,7 +91,7 @@ def build_uv(a, b, c, d, t, dt=None) -> CeleriteUV:
     if dt is None:
         dt = torch.diff(t)
     dt = torch.as_tensor(dt, dtype=t.dtype, device=t.device)
-    ec = exp_neg(dt[:, None] * c[..., None, :])  # (..., N-1, J)
+    ec = exp_neg(dt[..., :, None] * c[..., None, :])  # (..., N-1, J)
     phi = _interleave(ec, ec)
     phi = torch.cat([torch.zeros_like(phi[..., :1, :]), phi], dim=-2)
     return CeleriteUV(U=U, V=V, phi=phi)
@@ -133,6 +134,16 @@ def _factor(U, V, phi, sigma2, suma) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(D, dim=-1), torch.stack(W, dim=-2)
 
 
+def _forward_sub(U, W, phi, y):
+    """zp = (I + tril(U W^T))^{-1} y, (..., N): the forward substitution."""
+    zp = [y[..., 0]]
+    f = torch.zeros_like(U[..., 0, :])
+    for n in range(1, U.shape[-2]):
+        f = phi[..., n, :] * (f + W[..., n - 1, :] * zp[-1][..., None])
+        zp.append(y[..., n] - torch.sum(U[..., n, :] * f, dim=-1))
+    return torch.stack(zp, dim=-1)
+
+
 def celerite_factor_solve(a, b, c, d, t, y, sigma2, dt=None):
     """LDL^T factorisation and the K^{-1} y solve in three scans.
 
@@ -146,17 +157,11 @@ def celerite_factor_solve(a, b, c, d, t, y, sigma2, dt=None):
     D, W = _factor(U, V, phi, sigma2, torch.sum(a, dim=-1))
     logdetD = stable_sum(torch.log(torch.abs(D)))
 
-    # forward substitution: z' = (I + tril(U W^T))^{-1} y
-    zp = [y[..., 0]]
-    f = torch.zeros_like(U[..., 0, :])
-    for n in range(1, N):
-        f = phi[..., n, :] * (f + W[..., n - 1, :] * zp[-1][..., None])
-        zp.append(y[..., n] - torch.sum(U[..., n, :] * f, dim=-1))
-    zp = torch.stack(zp, dim=-1)
+    zp = _forward_sub(U, W, phi, y)
 
     # backward substitution: z = D^{-1} z' then (I + triu(W U^T))^{-1}
     z = [zp[..., -1] / D[..., -1]]
-    g = torch.zeros_like(f)
+    g = torch.zeros_like(U[..., 0, :])
     for n in range(N - 2, -1, -1):
         g = phi[..., n + 1, :] * (g + U[..., n + 1, :] * z[-1][..., None])
         z.append(zp[..., n] / D[..., n] - torch.sum(W[..., n, :] * g, dim=-1))
@@ -172,4 +177,27 @@ def logl(a, b, c, d, t, y, sigma2, dt=None):
     N = y.shape[-1]
     ll = -0.5 * logdetD - 0.5 * N * math.log(2.0 * math.pi) - 0.5 * stable_sum(y * z)
     ok = torch.all(D > 0, dim=-1) & torch.isfinite(ll)
+    return torch.where(ok, ll, torch.full_like(ll, -math.inf))
+
+
+def logl_masked(a, b, c, d, t, y, sigma2, n_valid, dt=None):
+    """Log-likelihood of the first ``n_valid`` points of padded series, (...,).
+
+    The recursion runs over the full padded grid (pad ``t`` with its last
+    value so dt = 0, ``sigma2`` with 1 so D stays positive); only steps
+    below ``n_valid`` (...,) count toward log det, the quadratic form
+    sum zp^2 / D and the positive-definiteness check, and the constant is
+    ``n_valid`` log 2 pi. t: (N,) or (..., N); dt: optional (N-1,) or
+    (..., N-1). The oracle of the multi-dataset kernels.
+    """
+    U, V, phi = build_uv(a, b, c, d, t, dt=dt)
+    D, W = _factor(U, V, phi, sigma2, torch.sum(a, dim=-1))
+    zp = _forward_sub(U, W, phi, y)
+    nv = torch.as_tensor(n_valid, device=y.device).to(y.dtype)
+    live = torch.arange(y.shape[-1], device=y.device) < nv[..., None]
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    logdet = stable_sum(torch.where(live, torch.log(torch.abs(D)), zero))
+    quad = stable_sum(torch.where(live, zp * zp / D, zero))
+    ll = -0.5 * (logdet + quad + nv * math.log(2.0 * math.pi))
+    ok = torch.all(torch.where(live, D, torch.ones_like(D)) > 0, dim=-1) & torch.isfinite(ll)
     return torch.where(ok, ll, torch.full_like(ll, -math.inf))

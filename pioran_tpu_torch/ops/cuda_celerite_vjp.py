@@ -1,10 +1,11 @@
 """The celerite likelihood's adjoint: the hand-written CUDA kernels K3 and
 K4, their plain PyTorch versions, and the wrappers between them.
 
-Port of ``pioran_tpu.ops.pallas_celerite_vjp`` for a time grid shared by
-the chains. The TPU kernels ``_fwd_aug_kernel`` (K3) and ``_bwd_kernel``
-(K4) become ``csrc/celerite_adjoint.cu``, built by nvcc at first use
-(see ``_build.py``).
+Port of ``pioran_tpu.ops.pallas_celerite_vjp``, for a time grid shared by
+the chains and for per-chain (ragged) grids. The TPU kernels
+``_fwd_aug_kernel`` (K3) and ``_bwd_kernel`` (K4) become
+``csrc/celerite_adjoint.cu``, built by nvcc at first use (see
+``_build.py``); each has a shared-grid and a per-lane instantiation.
 
 - :func:`fwd_aug` runs the forward sweep and also returns the residual
   tables the reverse sweep reads: per step W0, W1, pre0, pre1 (B, N, J),
@@ -12,8 +13,13 @@ the chains. The TPU kernels ``_fwd_aug_kernel`` (K3) and ``_bwd_kernel``
   (B, ceil(N / kc), 3, J, J).
 - :func:`bwd` takes those tables and a cotangent ``g`` (B,) of the
   log-likelihoods and returns the cotangents of (a, b, c, d, t, y,
-  sigma2); ``t``'s is summed over the chains and includes the chain rule
-  through the spacings, t̄_m += dt̄_m - dt̄_{m+1}.
+  sigma2); ``t``'s includes the chain rule through the spacings,
+  t̄_m += dt̄_m - dt̄_{m+1}, and is summed over the chains for a shared
+  grid, one row per chain for per-lane grids.
+- Per-lane grids: ``t`` (B, N), ``dt`` (B, N-1) and ``n_valid`` (B,)
+  valid lengths; only steps below a chain's ``n_valid`` count toward its
+  sums, its -inf check and its loss seeds, and the constant term is
+  ``n_valid`` log 2 pi.
 
 CUDA tensors go to the kernels, or raise; CPU tensors go to
 :func:`fwd_aug_plain` and :func:`bwd_plain`, Python loops over N on
@@ -23,7 +29,9 @@ CUDA tensors go to the kernels, or raise; CPU tensors go to
 There is no counterpart of the TPU code's VMEM tiling (``auto_tiles``,
 ``fits_vmem``), its scan fallback, or its ``SEG_STEPS`` launch
 segmentation: the tables live in device memory and one launch runs all N
-steps. ``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
+steps. ``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count launches of the
+shared-grid kernels, ``FWD_AUG_MULTI_LAUNCHES`` and ``BWD_MULTI_LAUNCHES``
+those of the per-lane ones.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from .. import _build
 from .celerite import exp_neg
 
 __all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "residual_bytes",
-           "check_inputs", "spacings", "KC", "MAX_TERMS"]
+           "check_inputs", "spacings", "live_steps", "log2pi_terms", "KC", "MAX_TERMS"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -46,28 +54,51 @@ MAX_TERMS = 32  # one warp lane per celerite term
 KC = 8          # steps between T checkpoints
 FWD_AUG_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_AUG_MULTI_LAUNCHES = 0
+BWD_MULTI_LAUNCHES = 0
 _LIB: Optional[ctypes.CDLL] = None
 
 Residuals = Tuple[torch.Tensor, ...]
 
 
 def spacings(t, dt=None):
-    """(N,) per-step spacing with a leading 0 (the first step is inert):
-    ``diff(t)``, or the host-f64 ``dt`` (N-1,) cast to t's dtype."""
-    zero = torch.zeros(1, dtype=t.dtype, device=t.device)
+    """Per-step spacing with a leading 0 (the first step is inert), along
+    the last axis of t, (N,) or (B, N): ``diff(t)``, or the host-f64
+    ``dt`` (N-1,) or (B, N-1) cast to t's dtype."""
+    zero = t.new_zeros(t.shape[:-1] + (1,))
     if dt is None:
-        return torch.cat([zero, torch.diff(t)])
-    return torch.cat([zero, torch.as_tensor(dt, device=t.device).to(t.dtype)])
+        return torch.cat([zero, torch.diff(t)], dim=-1)
+    return torch.cat([zero, torch.as_tensor(dt, device=t.device).to(t.dtype)], dim=-1)
 
 
-def check_inputs(a, b, c, d, t, y, sigma2, dt):
+def live_steps(n_valid, N: int):
+    """(B, N) mask of the steps below each chain's ``n_valid`` (B,)."""
+    return torch.arange(N, device=n_valid.device) < n_valid[:, None]
+
+
+def _lanes(t, dt, B, n_valid):
+    """(times (B, N), spacings (B, N), live (B, N) or None): every chain's
+    own rows, from a shared grid or per-lane grids; ``live`` marks the
+    steps below ``n_valid`` (None when every step counts)."""
+    N = t.shape[-1]
+    lanes_t, lanes_dt = t.expand(B, N), spacings(t, dt).expand(B, N)
+    if n_valid is None:
+        return lanes_t, lanes_dt, None
+    return lanes_t, lanes_dt, live_steps(torch.as_tensor(n_valid, device=t.device), N)
+
+
+def check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid=None):
     """Raise ``ValueError`` on what the CUDA kernels do not take: J > 32,
     a dtype other than float32/float64, mixed dtypes or devices, or wrong
-    shapes. Returns dt cast to the working dtype (or None)."""
+    shapes. ``t`` is (N,) shared by the chains or (B, N) per lane, with
+    ``dt`` (N-1,) or (B, N-1); ``n_valid`` (B,) goes with per-lane t only.
+    Returns (dt cast to the working dtype or None, n_valid as int32 or
+    None; per-lane t without n_valid gets N everywhere)."""
     if a.dim() != 2:
         raise ValueError(f"a must be (B, J), got {tuple(a.shape)}")
     B, J = a.shape
-    N = t.shape[0]
+    per_lane = t.dim() == 2
+    N = t.shape[-1]
     if J > MAX_TERMS:
         raise ValueError(
             f"the CUDA celerite kernels take at most {MAX_TERMS} terms "
@@ -75,8 +106,9 @@ def check_inputs(a, b, c, d, t, y, sigma2, dt):
     if a.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"float32 or float64 expected, got {a.dtype}")
     dev, dtype = a.device, a.dtype
+    lead = (B,) if per_lane else ()
     for name, x, shape in (("b", b, (B, J)), ("c", c, (B, J)), ("d", d, (B, J)),
-                           ("t", t, (N,)), ("y", y, (B, N)),
+                           ("t", t, lead + (N,)), ("y", y, (B, N)),
                            ("sigma2", sigma2, (B, N))):
         if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(
@@ -84,9 +116,16 @@ def check_inputs(a, b, c, d, t, y, sigma2, dt):
                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if dt is not None:
         dt = torch.as_tensor(dt, device=dev).to(dtype)
-        if tuple(dt.shape) != (max(N - 1, 0),):
-            raise ValueError(f"dt must be ({N - 1},), got {tuple(dt.shape)}")
-    return dt
+        if tuple(dt.shape) != lead + (max(N - 1, 0),):
+            raise ValueError(f"dt must be {lead + (N - 1,)}, got {tuple(dt.shape)}")
+    if n_valid is None:
+        return dt, (torch.full((B,), N, dtype=torch.int32, device=dev) if per_lane else None)
+    if not per_lane:
+        raise ValueError("n_valid needs per-lane times t (B, N)")
+    n_valid = torch.as_tensor(n_valid, device=dev).to(torch.int32).contiguous()
+    if tuple(n_valid.shape) != (B,):
+        raise ValueError(f"n_valid must be ({B},), got {tuple(n_valid.shape)}")
+    return dt, n_valid
 
 
 def residual_bytes(B: int, J: int, N: int, kc: int = KC,
@@ -107,16 +146,23 @@ def _mv(M, v):
     return (M @ v[:, :, None])[:, :, 0]
 
 
-def fwd_aug_plain(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC):
+def _masked(live, n, x, fill):
+    """x where step n is live (everywhere when live is None), else fill."""
+    return x if live is None else torch.where(live[:, n], x, fill)
+
+
+def fwd_aug_plain(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC, n_valid=None):
     """Plain PyTorch version of K3: ``(ll (B,), residuals)``.
 
-    ll is :func:`cuda_celerite.batched_loglike_plain`'s value; residuals
-    are (W0, W1, pre0, pre1) (B, N, J), (D, zp) (B, N) and the T
-    checkpoints (B, ceil(N / kc), 3, J, J) of steps 0, kc, 2 kc, ...
+    ll is :func:`cuda_celerite.batched_loglike_plain`'s value (with
+    per-lane t, ``batched_loglike_multi_plain``'s); residuals are (W0,
+    W1, pre0, pre1) (B, N, J), (D, zp) (B, N) and the T checkpoints
+    (B, ceil(N / kc), 3, J, J) of steps 0, kc, 2 kc, ...
     """
     B, J = a.shape
-    N = t.shape[0]
-    dtv = spacings(t, dt)
+    N = t.shape[-1]
+    lanes_t, lanes_dt, live = _lanes(t, dt, B, n_valid)
+    zero, inf = a.new_zeros(()), a.new_full((), math.inf)
     suma = torch.sum(a, dim=1)
     S00, S01, S11 = (a.new_zeros(B, J, J) for _ in range(3))
     f0, f1, W0, W1 = (a.new_zeros(B, J) for _ in range(4))
@@ -127,11 +173,11 @@ def fwd_aug_plain(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC):
     ckpts = []
 
     for n in range(N):
-        co = torch.cos(d * t[n])
-        si = torch.sin(d * t[n])
+        co = torch.cos(d * lanes_t[:, n, None])
+        si = torch.sin(d * lanes_t[:, n, None])
         U0 = a * co + b * si
         U1 = a * si - b * co
-        ec = exp_neg(c * dtv[n])
+        ec = exp_neg(c * lanes_dt[:, n, None])
         ee = ec[:, :, None] * ec[:, None, :]
         Wd0 = W0 * Dp[:, None]
         Wd1 = W1 * Dp[:, None]
@@ -155,45 +201,56 @@ def fwd_aug_plain(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC):
             lst.append(x)
         Dp, zpp = Dn, zpn
 
-        # Kahan-compensated sums, as in the kernel
-        x2 = torch.log(torch.abs(Dn)) - clog
+        # Kahan-compensated sums over the live steps, as in the kernel
+        x2 = _masked(live, n, torch.log(torch.abs(Dn)), zero) - clog
         t2 = logdet + x2
         clog = (t2 - logdet) - x2
         logdet = t2
-        x3 = zpn * zpn / Dn - cquad
+        x3 = _masked(live, n, zpn * zpn / Dn, zero) - cquad
         t3 = quad + x3
         cquad = (t3 - quad) - x3
         quad = t3
-        minD = torch.minimum(minD, Dn)
+        minD = torch.minimum(minD, _masked(live, n, Dn, inf))
 
-    ll = -0.5 * (logdet + quad + N * _LOG2PI)
+    ll = -0.5 * (logdet + quad + log2pi_terms(N, n_valid, a.dtype))
     ok = (minD > 0) & torch.isfinite(ll)
     ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
     residuals = tuple(torch.stack(lst, dim=1) for lst in tabs) + (torch.stack(ckpts, dim=1),)
     return ll, residuals
 
 
-def _fold_time(tb, dtb):
-    """t̄ (N,) from per-chain step partials (B, N): the cos/sin partial plus
-    the spacing chain rule, dt_m = t_m - t_{m-1}, summed over chains."""
-    tb, dtb = tb.sum(0), dtb.sum(0)
-    return tb + dtb - torch.cat([dtb[1:], dtb.new_zeros(1)])
+def log2pi_terms(N, n_valid, dtype):
+    """The constant term of -2 ll: N log 2 pi, or n_valid log 2 pi per chain."""
+    if n_valid is None:
+        return N * _LOG2PI
+    return torch.as_tensor(n_valid).to(dtype) * _LOG2PI
+
+
+def _fold_time(tb, dtb, per_lane):
+    """t̄ from per-chain step partials (B, N): the cos/sin partial plus the
+    spacing chain rule, dt_m = t_m - t_{m-1}, so t̄_m += dt̄_m - dt̄_{m+1}
+    (with dt̄_N = 0). One row per chain for per-lane grids, (N,) summed over
+    the chains for a shared grid."""
+    if not per_lane:
+        tb, dtb = tb.sum(0), dtb.sum(0)
+    return tb + dtb - torch.cat([dtb[..., 1:], torch.zeros_like(dtb[..., :1])], dim=-1)
 
 
 def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
-              kc: int = KC):
-    """Plain PyTorch version of K4: cotangents (ā, b̄, c̄, d̄ (B, J), t̄ (N,),
-    ȳ, σ̄² (B, N)) of the log-likelihoods under the cotangent ``g`` (B,).
+              kc: int = KC, n_valid=None):
+    """Plain PyTorch version of K4: cotangents (ā, b̄, c̄, d̄ (B, J), t̄ (N,)
+    or (B, N) for per-lane t, ȳ, σ̄² (B, N)) of the log-likelihoods under
+    the cotangent ``g`` (B,).
 
     Within each kc-step chunk, T is recomputed from its checkpoint; the
     sweep then reverses every forward statement, carrying Mbar (the
-    cotangent of T_{m+1}) and cpre (that of pre_{m+1}). Chains with
-    ``g == 0`` get exact zeros.
+    cotangent of T_{m+1}) and cpre (that of pre_{m+1}). Only steps below
+    ``n_valid`` seed the loss. Chains with ``g == 0`` get exact zeros.
     """
     W0t, W1t, P0t, P1t, Dt, ZPt, Tcp = residuals
     B, J = a.shape
-    N = t.shape[0]
-    dtv = spacings(t, dt)
+    N = t.shape[-1]
+    lanes_t, lanes_dt, step_live = _lanes(t, dt, B, n_valid)
     live = g != 0
     g = torch.where(live, g, torch.zeros_like(g))
     M00, M01, M11 = (a.new_zeros(B, J, J) for _ in range(3))
@@ -209,7 +266,7 @@ def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
         # phase 1: T_m for the chunk's steps, from the checkpoint
         Ts = [Tcp[:, chunk].unbind(1)]
         for m in steps[1:]:
-            ec = exp_neg(c * dtv[m - 1])
+            ec = exp_neg(c * lanes_dt[:, m - 1, None])
             ee = ec[:, :, None] * ec[:, None, :]
             W0, W1, Dm = W0t[:, m - 1], W1t[:, m - 1], Dt[:, m - 1]
             Wd0, Wd1 = W0 * Dm[:, None], W1 * Dm[:, None]
@@ -221,7 +278,7 @@ def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
         # phase 2: reverse sweep
         for m in reversed(steps):
             T00, T01, T11 = Ts[m - base]
-            tn, dtn = t[m], dtv[m]
+            tn, dtn = lanes_t[:, m, None], lanes_dt[:, m, None]
             co = torch.cos(d * tn)
             si = torch.sin(d * tn)
             U0 = a * co + b * si
@@ -248,9 +305,10 @@ def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
             W1bar = W1bar + cp1 * zpm
             zpbar = torch.sum(cp0 * W0, 1) + torch.sum(cp1 * W1, 1)
 
-            # loss seeds
-            Dbar = Dbar - 0.5 * g * (1.0 / Dm[:, 0] - zpm[:, 0] ** 2 / Dm[:, 0] ** 2)
-            zpbar = zpbar - g * zpm[:, 0] / Dm[:, 0]
+            # loss seeds, on the live steps
+            gm = _masked(step_live, m, g, torch.zeros_like(g))
+            Dbar = Dbar - 0.5 * gm * (1.0 / Dm[:, 0] - zpm[:, 0] ** 2 / Dm[:, 0] ** 2)
+            zpbar = zpbar - gm * zpm[:, 0] / Dm[:, 0]
 
             # zp = y - U0.f0 - U1.f1 ; f = ec o pre
             ybar[:, m] = zpbar
@@ -301,7 +359,7 @@ def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
     outs = [torch.where(live[:, None], x, zero)
             for x in (abar, bbar, cbar, dbar, ybar, s2bar, tb, dtb)]
     abar, bbar, cbar, dbar, ybar, s2bar, tb, dtb = outs
-    return abar, bbar, cbar, dbar, _fold_time(tb, dtb), ybar, s2bar
+    return abar, bbar, cbar, dbar, _fold_time(tb, dtb, t.dim() == 2), ybar, s2bar
 
 
 # ---------------------------------------------------------------------------
@@ -312,11 +370,13 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("celerite_adjoint")
-        for fn in (lib.celerite_fwd_aug_f32, lib.celerite_fwd_aug_f64):
-            fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.celerite_bwd_f32, lib.celerite_bwd_f64):
-            fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # the per-lane entries take one more pointer, the int32 n_valid
+        for fn, nptr in ((lib.celerite_fwd_aug_f32, 16), (lib.celerite_fwd_aug_f64, 16),
+                         (lib.celerite_fwd_aug_multi_f32, 17),
+                         (lib.celerite_fwd_aug_multi_f64, 17),
+                         (lib.celerite_bwd_f32, 23), (lib.celerite_bwd_f64, 23),
+                         (lib.celerite_bwd_multi_f32, 24), (lib.celerite_bwd_multi_f64, 24)):
+            fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.celerite_adjoint_error_string.argtypes = [ctypes.c_int]
         lib.celerite_adjoint_error_string.restype = ctypes.c_char_p
@@ -340,12 +400,19 @@ def _check_kc(kc):
     return int(kc)
 
 
-def _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc):
-    global FWD_AUG_LAUNCHES
-    dt = check_inputs(a, b, c, d, t, y, sigma2, dt)
+def _entry(lib, name, dtype, per_lane):
+    """The C entry ``name[_multi]_{f32,f64}``."""
+    return getattr(lib, name + ("_multi" if per_lane else "")
+                   + ("_f32" if dtype == torch.float32 else "_f64"))
+
+
+def _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid):
+    global FWD_AUG_LAUNCHES, FWD_AUG_MULTI_LAUNCHES
+    dt, n_valid = check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid)
     kc = _check_kc(kc)
+    per_lane = n_valid is not None
     B, J = a.shape
-    N = t.shape[0]
+    N = t.shape[-1]
     nck = -(-N // kc)
     new = lambda *s: torch.empty(*s, dtype=a.dtype, device=a.device)  # noqa: E731
     ll = new(B)
@@ -355,20 +422,26 @@ def _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc):
         return ll, res
     args = [x.contiguous() for x in (a, b, c, d, t)]
     args.append(None if dt is None else dt.contiguous())
-    args += [y.contiguous(), sigma2.contiguous(), ll, *res]
+    args += [y.contiguous(), sigma2.contiguous()]
+    args += [n_valid] if per_lane else []
+    args += [ll, *res]
     lib = _lib()
-    fn = lib.celerite_fwd_aug_f32 if a.dtype == torch.float32 else lib.celerite_fwd_aug_f64
+    fn = _entry(lib, "celerite_fwd_aug", a.dtype, per_lane)
     _call(fn, lib, "celerite_fwd_aug", a.device, args, (B, J, N, kc))
-    FWD_AUG_LAUNCHES += 1
+    if per_lane:
+        FWD_AUG_MULTI_LAUNCHES += 1
+    else:
+        FWD_AUG_LAUNCHES += 1
     return ll, res
 
 
-def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc):
-    global BWD_LAUNCHES
-    dt = check_inputs(a, b, c, d, t, y, sigma2, dt)
+def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid):
+    global BWD_LAUNCHES, BWD_MULTI_LAUNCHES
+    dt, n_valid = check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid)
     kc = _check_kc(kc)
+    per_lane = n_valid is not None
     B, J = a.shape
-    N = t.shape[0]
+    N = t.shape[-1]
     nck = -(-N // kc)
     shapes = [(B, N, J)] * 4 + [(B, N)] * 2 + [(B, nck, 3, J, J)]
     if len(residuals) != 7:
@@ -386,32 +459,41 @@ def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc):
     rows = [new(B, N) for _ in range(4)]  # ybar, s2bar, t partial, dt partial
     if B == 0 or N == 0:
         coefs = [x.zero_() for x in coefs]
-        return (*coefs, a.new_zeros(N), rows[0].zero_(), rows[1].zero_())
+        return (*coefs, rows[2].zero_() if per_lane else a.new_zeros(N),
+                rows[0].zero_(), rows[1].zero_())
     scratch = new(B, kc, 4, J, J)
     args = [x.contiguous() for x in (a, b, c, d, t)]
     args.append(None if dt is None else dt.contiguous())
-    args += [g.contiguous(), *(x.contiguous() for x in residuals), scratch, *coefs, *rows]
+    args += [g.contiguous()]
+    args += [n_valid] if per_lane else []
+    args += [*(x.contiguous() for x in residuals), scratch, *coefs, *rows]
     lib = _lib()
-    fn = lib.celerite_bwd_f32 if a.dtype == torch.float32 else lib.celerite_bwd_f64
+    fn = _entry(lib, "celerite_bwd", a.dtype, per_lane)
     _call(fn, lib, "celerite_bwd", a.device, args, (B, J, N, kc))
-    BWD_LAUNCHES += 1
+    if per_lane:
+        BWD_MULTI_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     ybar, s2bar, tb, dtb = rows
-    return (*coefs, _fold_time(tb, dtb), ybar, s2bar)
+    return (*coefs, _fold_time(tb, dtb, per_lane), ybar, s2bar)
 
 
-def fwd_aug(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC):
-    """K3: ``(ll (B,), residuals)``. CUDA tensors launch the kernel (or
-    raise ``ValueError`` on J > 32, a wrong dtype or shape); CPU tensors
-    run :func:`fwd_aug_plain`."""
+def fwd_aug(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC, n_valid=None):
+    """K3: ``(ll (B,), residuals)``. ``t`` (N,) shared, or (B, N) per lane
+    with ``dt`` (B, N-1) and ``n_valid`` (B,). CUDA tensors launch the
+    kernel (or raise ``ValueError`` on J > 32, a wrong dtype or shape);
+    CPU tensors run :func:`fwd_aug_plain`."""
     if a.is_cuda:
-        return _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc)
-    return fwd_aug_plain(a, b, c, d, t, y, sigma2, dt, kc)
+        return _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid)
+    return fwd_aug_plain(a, b, c, d, t, y, sigma2, dt, kc, n_valid)
 
 
-def bwd(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None, kc: int = KC):
+def bwd(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None, kc: int = KC,
+        n_valid=None):
     """K4: cotangents (ā, b̄, c̄, d̄, t̄, ȳ, σ̄²) under the cotangent ``g``.
     CUDA tensors launch the kernel (or raise); CPU tensors run
-    :func:`bwd_plain`. ``kc`` must be the one :func:`fwd_aug` used."""
+    :func:`bwd_plain`. ``kc``, ``dt`` and ``n_valid`` must be those
+    :func:`fwd_aug` used."""
     if a.is_cuda:
-        return _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc)
-    return bwd_plain(a, b, c, d, t, y, sigma2, residuals, g, dt, kc)
+        return _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid)
+    return bwd_plain(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid)

@@ -173,3 +173,133 @@ def test_backward_on_card_runs_the_kernels_only(card, monkeypatch):
     with torch.no_grad():
         batched_loglike(*args)
     assert cuda_celerite.LAUNCHES == n1 + 1
+
+
+# ---------------------------------------------------------------------------
+# the multi-dataset kernels: K2 (celerite_fwd_multi) and the per-lane K3/K4
+# ---------------------------------------------------------------------------
+
+
+def _ragged(B, J, N, seed):
+    """Per-lane grids edge-padded past ragged lengths (one lane full), their
+    host spacings, and lane 0 not positive definite."""
+    a, b, c, d, _, y, s2 = _problem(B, J, N, seed)
+    rng = np.random.default_rng(seed + 100)
+    T = np.sort(rng.uniform(0, 100, (B, N)), axis=1)
+    nv = rng.integers(N // 3, N + 1, B)
+    nv[1] = N
+    for i, m in enumerate(nv):
+        T[i, m:] = T[i, m - 1]
+    live = np.arange(N)[None, :] < nv[:, None]
+    return (a, b, c, d, T, y, np.where(live, s2, 1.0)), np.diff(T, axis=1), nv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
+@pytest.mark.parametrize("J", [3, 20, 32])
+@pytest.mark.parametrize("with_dt", [False, True])
+def test_multi_kernel_matches_plain_on_card(card, dtype, tol, J, with_dt):
+    """K2 on a ragged batch edge (37 chains) against its plain version."""
+    args, DT, nv = _ragged(37, J, 120, seed=J)
+    targs = [torch.as_tensor(x, dtype=dtype, device=card) for x in args]
+    nv = torch.as_tensor(nv, device=card)
+    dt = torch.as_tensor(DT, device=card) if with_dt else None
+    before = cuda_celerite.MULTI_LAUNCHES
+    k = cuda_celerite.batched_loglike_multi(*targs, nv, dt)
+    assert cuda_celerite.MULTI_LAUNCHES == before + 1
+    p = cuda_celerite.batched_loglike_multi_plain(*targs, nv, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(k), torch.isneginf(p)) and bool(k[0] == -math.inf)
+    fin = torch.isfinite(p)
+    assert int(fin.sum()) == 36
+    err = (k[fin] - p[fin]).abs()
+    if dtype == torch.float64:
+        err = err / p[fin].abs()
+    assert float(err.max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_multi_kernel_on_one_grid_is_k1_on_card(card, dtype):
+    """K2 with every lane on one grid and n_valid = N gives K1's values."""
+    a, b, c, d, t, y, s2 = (torch.as_tensor(x, dtype=dtype, device=card)
+                            for x in _problem(37, 20, 200, seed=4))
+    k1 = batched_loglike(a, b, c, d, t, y, s2)
+    k2 = cuda_celerite.batched_loglike_multi(a, b, c, d, t.expand(37, 200), y, s2,
+                                             torch.full((37,), 200, device=card))
+    fin = torch.isfinite(k1)
+    assert torch.equal(fin, torch.isfinite(k2))
+    rel = float(((k2[fin] - k1[fin]).abs() / k1[fin].abs()).max())
+    assert rel <= (1e-12 if dtype == torch.float64 else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("J", [3, 20, 32])
+@pytest.mark.parametrize("with_dt", [False, True])
+def test_per_lane_adjoint_kernels_match_plain_on_card(card, dtype, J, with_dt):
+    """Per-lane K3/K4 against their plain versions, as the shared-grid test
+    above; t, y and sigma2 cotangents are exactly zero past n_valid."""
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+
+    args, DT, nv = _ragged(37, J, 100, seed=J)
+    args64 = [torch.as_tensor(x, dtype=torch.float64, device=card) for x in args]
+    args = [x.to(dtype) for x in args64]
+    nv = torch.as_tensor(nv, device=card)
+    live = torch.arange(100, device=card)[None, :] < nv[:, None]
+    dt = torch.as_tensor(DT, device=card) if with_dt else None
+    n3, n4 = vjp.FWD_AUG_MULTI_LAUNCHES, vjp.BWD_MULTI_LAUNCHES
+    ll, res = vjp.fwd_aug(*args, dt=dt, kc=8, n_valid=nv)
+    g = torch.where(torch.isfinite(ll), torch.linspace(0.5, 1.5, 37, dtype=dtype, device=card), 0.0)
+    grads = vjp.bwd(*args, res, g, dt=dt, kc=8, n_valid=nv)
+    torch.cuda.synchronize()
+    assert (vjp.FWD_AUG_MULTI_LAUNCHES, vjp.BWD_MULTI_LAUNCHES) == (n3 + 1, n4 + 1)
+    ll_p, res_p = vjp.fwd_aug_plain(*args64, dt=dt, kc=8, n_valid=nv)
+    grads_p = vjp.bwd_plain(*args64, res_p, g.double(), dt=dt, kc=8, n_valid=nv)
+    assert torch.equal(torch.isneginf(ll), torch.isneginf(ll_p)) and bool(ll[0] == -math.inf)
+    assert grads[4].shape == (37, 100)
+    for x in grads:
+        assert bool((x[0] == 0).all())  # the non-PD lane
+    for x in grads[4:]:
+        assert bool((x[~live] == 0).all())
+    fin = torch.isfinite(ll_p)
+    ours = _adjoint_rows(fin, ll, res, grads)
+    refs = _adjoint_rows(fin, ll_p, res_p, grads_p)
+    if dtype == torch.float64:
+        bounds = [1e-9] * len(refs)
+    else:
+        ll_q, res_q = vjp.fwd_aug_plain(*args, dt=dt, kc=8, n_valid=nv)
+        own = _adjoint_rows(fin, ll_q, res_q,
+                            vjp.bwd_plain(*args, res_q, g, dt=dt, kc=8, n_valid=nv))
+        bounds = [max(4.0 * _rel_rows(q, r), 1e-5) for q, r in zip(own, refs)]
+    for i, (x, r, bound) in enumerate(zip(ours, refs, bounds)):
+        assert _rel_rows(x, r) <= bound, i
+
+
+@pytest.mark.cuda
+def test_multi_backward_on_card_runs_the_kernels_only(card, monkeypatch):
+    """Value and gradient of a ragged CUDA batch go through the per-lane K3
+    and K4 and never through a plain version; without a gradient, K2."""
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(vjp, "fwd_aug_plain", refuse)
+    monkeypatch.setattr(vjp, "bwd_plain", refuse)
+    monkeypatch.setattr(cuda_celerite, "_plain", refuse)
+    args, DT, nv = _ragged(9, 20, 64, seed=5)
+    args = [torch.as_tensor(x, device=card).requires_grad_(True) for x in args]
+    nv, dt = torch.as_tensor(nv, device=card), torch.as_tensor(DT, device=card)
+    counts = lambda: (cuda_celerite.MULTI_LAUNCHES, vjp.FWD_AUG_MULTI_LAUNCHES,  # noqa: E731
+                      vjp.BWD_MULTI_LAUNCHES)
+    n2, n3, n4 = counts()
+    ll = cuda_celerite.batched_loglike_multi(*args, nv, dt)
+    grads = torch.autograd.grad(ll.sum(), args)
+    torch.cuda.synchronize()
+    assert counts() == (n2, n3 + 1, n4 + 1)
+    assert bool((grads[0][0] == 0).all()) and bool(torch.isneginf(ll[0]))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with torch.no_grad():
+        cuda_celerite.batched_loglike_multi(*args, nv, dt)
+    assert counts() == (n2 + 1, n3 + 1, n4 + 1)
