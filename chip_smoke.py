@@ -7,10 +7,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the CUDA kernels from ``pioran_tpu_torch/csrc`` with nvcc
 (K1, the forward ``celerite_fwd``; K3 and K4, the adjoint pair
-``celerite_fwd_aug`` and ``celerite_bwd``; and their per-lane forms for
+``celerite_fwd_aug`` and ``celerite_bwd``; their per-lane forms for
 ragged per-chain time grids: K2 ``celerite_fwd_multi``,
-``celerite_fwd_aug_multi`` and ``celerite_bwd_multi``), checks each
-against its plain PyTorch version, and drives the port's main paths with
+``celerite_fwd_aug_multi`` and ``celerite_bwd_multi``; and K0, the
+table-streaming forward ``celerite_tables``), checks each against its
+plain PyTorch version, and drives the port's main paths with
 the flagship single-bending model (J = 20): on the reference's 485-point
 light curve, nested sampling (``run_inference(sampler="ns")``, 1024 live
 points, gated against the reference's ultranest evidence) and ChEES-HMC
@@ -20,7 +21,13 @@ referee and on split-r̂); then the multi-dataset path on 16 ragged light
 curves: a no-gradient sweep of ``batched_loglike_multi`` (K2) and
 ``run_inference_many`` (64 chains each from prior draws, 500 + 500
 iterations, per-lane K3/K4; every dataset's mu gated, dataset 0, the
-reference's subset, reported against the referee).
+reference's subset, reported against the referee); then K0 through its
+entry point ``batched_loglike_tables`` (ten flagship sweeps at B = 4096),
+tempered SMC (``run_inference(sampler="smc")``, 1024 particles, 12 MALA
+moves, gated on the reference's evidence and the referee) and NUTS (on a
+correlated Gaussian on the card, with the analytic gates; and
+``run_inference(sampler="nuts", init="advi")`` on the flagship, 16
+chains, checked for finite draws and its exact leapfrog count).
 Between them it checks the flagship gradients and the N = 2^16 gradient.
 Each phase prints its lines; any failure exits non-zero before the result
 lines. The last two lines are the kernel table (JSON) and
@@ -49,6 +56,7 @@ FLAGSHIP_LL64 = 1533.8193151727223  # JAX package, CPU, float64
 REF_LOGZ, LOGZ_TOL = 1014.013, 0.90  # reference ultranest; 3x its logzerr
 ADJOINT_SRC = "pioran_tpu_torch/csrc/celerite_adjoint.cu"
 FWD_SRC = "pioran_tpu_torch/csrc/celerite_fwd.cu"
+TABLES_SRC = "pioran_tpu_torch/csrc/celerite_tables.cu"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_fwd": (FWD_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),  # _fused_kernel
     "celerite_fwd_aug": (ADJOINT_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
@@ -57,6 +65,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_fwd_multi": (FWD_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
     "celerite_fwd_aug_multi": (ADJOINT_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
     "celerite_bwd_multi": (ADJOINT_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
+    # _kernel, launched at :232 by batched_loglike_pallas
+    "celerite_tables": (TABLES_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
 }
 PHASE2_BATCHES = (128, 4096, 1000)  # NS sweep, final sweep, ragged edge
 ADJ_BATCHES = (512, 8, 1000)        # ChEES batch, small, ragged edge
@@ -67,6 +77,13 @@ ADJ_MULTI_BATCHES = (1024, 7)      # the run_inference_many batch, ragged edge
 MANY_D = 16                         # datasets of the multi-dataset run
 MANY = dict(num_chains=64, num_warmup=500, num_samples=500, max_leapfrogs=128)  # JAX defaults
 PATH_A_SWEEPS = 10                  # no-gradient K2 sweeps over the run's batch
+TABLES_BATCHES = (128, 4096, 1000)  # K0: NS sweep width, final sweep, ragged edge
+TABLES_SWEEPS = 10                  # flagship sweeps through batched_loglike_tables
+SMC_LOGZ_TOL = 1.0                  # examples/tpu_parity.py's logz_tol for "single"
+SMC = dict(num_particles=1024, num_moves=12)  # the committed parity run's settings
+# 16 chains, the JAX default; about 2.3 s an iteration on the card, so
+# 80 iterations keep the whole script near 800 s on a slow card host
+NUTS_FLAGSHIP = dict(num_chains=16, num_warmup=50, num_samples=30)
 # the H100 SXM's published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
@@ -214,7 +231,7 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
-    libs = ("celerite_fwd", "celerite_adjoint")
+    libs = ("celerite_fwd", "celerite_adjoint", "celerite_tables")
     t0 = time.perf_counter()
     _build.load_all(libs)  # one nvcc per source, started together
     wall = time.perf_counter() - t0
@@ -227,12 +244,14 @@ def phase_build():
 
 def ptxas_summary(log: str) -> str:
     """'kernel<type,JP,grid> regs spill stores/loads' for each entry
-    function in nvcc's -Xptxas -v output (grid: shared or per-lane t)."""
+    function in nvcc's -Xptxas -v output (grid: shared or per-lane t;
+    tables for K0)."""
     out, cur, spill = [], None, None
     for ln in log.splitlines():
-        m = re.search(r"(celerite_fwd_kernel|fwd_aug_kernel|bwd_kernel)I([fd])Li(\d+)ELb([01])E", ln)
+        m = re.search(r"(celerite_fwd_kernel|fwd_aug_kernel|bwd_kernel|celerite_tables_kernel)"
+                      r"I([fd])Li(\d+)E(?:Lb([01])E)?", ln)
         if "Compiling entry function" in ln and m:
-            grid = "per-lane" if m.group(4) == "1" else "shared"
+            grid = {"1": "per-lane", "0": "shared", None: "tables"}[m.group(4)]
             cur, spill = f"{m.group(1)}<{m.group(2)},{m.group(3)},{grid}>", None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -926,6 +945,261 @@ def phase_many(dev, out_dir, datasets):
     return launches
 
 
+def tables_cost(B: int, J: int = 20, N: int = 485, item: int = 4):
+    """(bytes, operations) of one K0 launch: the three (N, 2J, B) tables,
+    y and sigma2 (B, N) and suma (B,) read once, the output written once;
+    about 24 J^2 operations a chain-step (K1's 20 J^2 plus the four
+    products of the row and column phi, which K0 reads for both halves)."""
+    return item * (3 * N * 2 * J * B + 2 * B * N + 2 * B), 24.0 * J * J * B * N
+
+
+def phase_tables(spec64, spec32):
+    """K0 against its plain version and against K1, its times beside its
+    bound, and the entry point batched_loglike_tables driven alone."""
+    from pioran_tpu_torch.ops import cuda_celerite
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+    from pioran_tpu_torch.ops.cuda_celerite import (
+        batched_loglike, batched_loglike_tables, build_tables, loglike_from_tables,
+        loglike_from_tables_plain)
+
+    dev = spec64.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    vs_k1, times = 0.0, {}
+    for spec in (spec64, spec32):
+        dtype = spec.dtype
+        t = torch.as_tensor(spec.t, dtype=torch.float64, device=dev).to(dtype)
+        for B in TABLES_BATCHES:
+            a, b, c, d, y, s2 = flagship_inputs(spec, B, gen)
+            U, V, phi = build_tables(a, b, c, d, t)
+            suma = a.sum(1)
+            k = loglike_from_tables(U, V, phi, y, s2, suma)
+            p = loglike_from_tables_plain(U, V, phi, y, s2, suma)
+            torch.cuda.synchronize()
+            kinf, pinf = torch.isneginf(k), torch.isneginf(p)
+            check(bool(torch.equal(kinf, pinf)),
+                  f"K0 -inf lanes differ ({dtype}, B={B}): kernel {int(kinf.sum())}, "
+                  f"plain {int(pinf.sum())}")
+            check(bool(kinf[0]), "K0: the forced non-PD lane is not -inf")
+            fin = ~kinf
+            check(bool(torch.isfinite(k[fin]).all()), "non-finite K0 value")
+            err = (k[fin] - p[fin]).abs()
+            if dtype == torch.float64:
+                rel = float((err / p[fin].abs()).max())
+                check(rel <= 1e-9, f"K0 f64 B={B}: rel err {rel:.3e} > 1e-9")
+                worst[dtype] = max(worst[dtype], rel)
+                k1 = batched_loglike(a, b, c, d, t, y, s2)
+                torch.cuda.synchronize()
+                check(torch.equal(torch.isfinite(k1), fin), f"K0 vs K1: -inf lanes differ (B={B})")
+                r1 = float(((k[fin] - k1[fin]).abs() / k1[fin].abs()).max())
+                check(r1 <= 1e-9, f"K0 vs K1 f64 B={B}: rel {r1:.3e} > 1e-9")
+                vs_k1 = max(vs_k1, r1)
+            else:
+                mx = float(err.max())
+                check(mx <= 0.05, f"K0 f32 B={B}: abs err {mx:.3e} > 0.05 nats")
+                worst[dtype] = max(worst[dtype], mx)
+            if B in TABLES_BATCHES[:2]:
+                times[(str(dtype)[6:], B)] = (
+                    cuda_ms(lambda: loglike_from_tables(U, V, phi, y, s2, suma), 20),  # noqa: B023
+                    cuda_ms(lambda: batched_loglike_tables(a, b, c, d, t, y, s2), 20),  # noqa: B023
+                    cuda_ms(lambda: build_tables(a, b, c, d, t), 20),  # noqa: B023
+                    cuda_ms(lambda: batched_loglike(a, b, c, d, t, y, s2), 20),  # noqa: B023
+                    cuda_ms(lambda: loglike_from_tables_plain(U, V, phi, y, s2, suma), 1))  # noqa: B023
+            del U, V, phi
+    tstr = " ".join(
+        f"{k[0]}/B={k[1]}: K0_ms={v[0]:.4f} entry_ms={v[1]:.4f} build_tables_ms={v[2]:.4f} "
+        f"K1_ms={v[3]:.4f} plain_ms={v[4]:.2f}"
+        + (f" bound_ms={bound(*tables_cost(k[1]))[0]:.5f} ({bound(*tables_cost(k[1]))[1]})"
+           if k[0] == "float32" else "")
+        for k, v in times.items())
+    print(f"phase 13 K0 vs plain: ok N={len(spec64.t)} J=20 B={TABLES_BATCHES} lane 0 non-PD "
+          f"f64_max_rel_err={worst[torch.float64]:.3e} (gate 1e-9) "
+          f"f32_max_abs_err={worst[torch.float32]:.3e} (gate 0.05); K0 vs K1 f64 rel "
+          f"{vs_k1:.3e} (gate 1e-9) | {tstr}")
+
+    # the main path: flagship sweeps through the entry point, nothing else
+    B = TABLES_BATCHES[1]
+    t = torch.as_tensor(spec32.t, dtype=torch.float32, device=dev)
+    inputs = [flagship_inputs(spec32, B, gen) for _ in range(TABLES_SWEEPS)]
+    torch.cuda.synchronize()
+    cuda_celerite.LAUNCHES = cuda_celerite.MULTI_LAUNCHES = cuda_celerite.TABLES_LAUNCHES = 0
+    vjp.FWD_AUG_LAUNCHES = vjp.BWD_LAUNCHES = 0
+    vjp.FWD_AUG_MULTI_LAUNCHES = vjp.BWD_MULTI_LAUNCHES = 0
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lls = [batched_loglike_tables(a, b, c, d, t, y, s2) for a, b, c, d, y, s2 in inputs]
+    stop.record()
+    torch.cuda.synchronize()
+    launches = cuda_celerite.TABLES_LAUNCHES
+    others = (cuda_celerite.LAUNCHES, cuda_celerite.MULTI_LAUNCHES, vjp.FWD_AUG_LAUNCHES,
+              vjp.BWD_LAUNCHES, vjp.FWD_AUG_MULTI_LAUNCHES, vjp.BWD_MULTI_LAUNCHES)
+    sweep_ms = start.elapsed_time(stop) / TABLES_SWEEPS
+    # each sweep against K1 in float64 on the same inputs: the entry
+    # point's float32 error within 3x K1's own float32 error (both round
+    # the flagship's ill-conditioned sums; 0.05 nats at least)
+    k1_64, k1_32 = [], []
+    for a, b, c, d, y, s2 in inputs:
+        k1_64.append(batched_loglike(*(x.double() for x in (a, b, c, d, t, y, s2))))
+        k1_32.append(batched_loglike(a, b, c, d, t, y, s2))
+    torch.cuda.synchronize()
+    fin = [torch.isfinite(x) for x in k1_64]
+    check(all(torch.equal(f, torch.isfinite(x)) for f, x in zip(fin, lls)),
+          "entry-point sweeps: -inf lanes differ from K1 in float64")
+    err = max(float((x[f] - r[f]).abs().max()) for x, r, f in zip(lls, k1_64, fin))
+    err_k1 = max(float((x[f] - r[f]).abs().max()) for x, r, f in zip(k1_32, k1_64, fin))
+    share = float(torch.stack([f.float().mean() for f in fin]).mean())
+    print(f"phase 13 entry point batched_loglike_tables: {TABLES_SWEEPS} flagship sweeps at "
+          f"B={B} float32 sweep_ms={sweep_ms:.4f} (build_tables + K0) K0_launches={launches} "
+          f"finite_share={share:.4f} max_abs_err_vs_f64={err:.3e} nats "
+          f"(K1 float32: {err_k1:.3e}; gate max(3x K1's, 0.05))")
+    check(launches == TABLES_SWEEPS, f"K0 launches {launches} != {TABLES_SWEEPS} sweeps")
+    check(others == (0,) * 6, f"the entry point launched other kernels: {others}")
+    check(err <= max(3.0 * err_k1, 0.05) and share > 0.9,
+          f"entry-point sweeps: {err:.3e} nats off float64 (K1 float32 {err_k1:.3e}), "
+          f"finite share {share:.3f}")
+    b32 = ("float32", TABLES_BATCHES[1])
+    return launches, worst[torch.float32], times[b32][0], times[b32][4], times
+
+
+def phase_smc(dev, out_dir):
+    """Tempered SMC on the flagship: run_inference(sampler="smc") with
+    the committed parity run's settings."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops import cuda_celerite, cuda_celerite_vjp as vjp
+
+    sub, xbar, va = load_subset()
+    spec = tinf.single_bending_model(sub[:, 0], sub[:, 1], sub[:, 2], xbar, va,
+                                     device=dev, dtype=torch.float32)
+    log_dir = os.path.join(out_dir, "smc")
+    cuda_celerite.LAUNCHES = cuda_celerite.TABLES_LAUNCHES = 0
+    vjp.FWD_AUG_LAUNCHES = vjp.BWD_LAUNCHES = 0
+    t_wall = time.perf_counter()
+    res = tinf.run_inference(spec, sampler="smc", log_dir=log_dir, **SMC)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_wall
+    launches = {"celerite_fwd": cuda_celerite.LAUNCHES, "celerite_fwd_aug": vjp.FWD_AUG_LAUNCHES,
+                "celerite_bwd": vjp.BWD_LAUNCHES, "celerite_tables": cuda_celerite.TABLES_LAUNCHES}
+    steps = res["num_temper_steps"]
+    ref = referee()
+    mean, sd = np.asarray(res["posterior"]["mean"]), np.asarray(res["posterior"]["stdev"])
+    pulls = (mean - np.asarray(ref["is_mean"])) / np.asarray(ref["is_std"])
+    width = sd / np.asarray(ref["is_std"])
+    print(f"phase 14 SMC: particles={SMC['num_particles']} moves={SMC['num_moves']} (mala) "
+          f"logz={res['logz']:.4f} temper_steps={steps} ncall={res['ncall']} "
+          f"elapsed_s={res['elapsed_s']:.2f} wall_s={wall:.2f} "
+          f"ms_per_temper_step={res['elapsed_s'] / max(steps, 1) * 1e3:.1f} launches={launches}")
+    print(f"phase 14 SMC pulls vs referee: {np.round(pulls, 4).tolist()} "
+          f"width ratios: {np.round(width, 4).tolist()}")
+    check(abs(res["logz"] - REF_LOGZ) <= SMC_LOGZ_TOL,
+          f"SMC logZ {res['logz']:.4f} outside {REF_LOGZ} +- {SMC_LOGZ_TOL}")
+    check(bool(np.all(np.abs(pulls) <= 0.5)), f"SMC posterior pull > 0.5 sd: {pulls}")
+    check(bool(np.all((width >= 0.75) & (width <= 1.33))),
+          f"SMC width ratio outside [0.75, 1.33]: {width}")
+    check(res["ncall"] == steps * SMC["num_moves"] * SMC["num_particles"], "SMC ncall formula")
+    # one gradient a temper step plus one a move; one K1 sweep a move
+    check(launches["celerite_fwd"] >= steps * SMC["num_moves"],
+          f"K1 launches {launches['celerite_fwd']} < {steps * SMC['num_moves']} moves")
+    check(min(launches["celerite_fwd_aug"], launches["celerite_bwd"])
+          >= steps * (SMC["num_moves"] + 1), f"K3/K4 launches {launches} < gradients")
+    for rel in (("chains", "equal_weighted_post.txt"), ("info", "results.json")):
+        check(os.path.isfile(os.path.join(log_dir, *rel)), f"{rel} not written")
+    print("phase 14 SMC: ok")
+    return launches
+
+
+def phase_nuts_gaussian(dev):
+    """NUTS on the correlated Gaussian of tests/test_samplers.py, on the
+    card, with its gates."""
+    from pioran_tpu_torch.samplers.nuts import run_nuts
+
+    cov = np.array([[2.0, 1.2, 0.3], [1.2, 1.5, 0.5], [0.3, 0.5, 1.0]])
+    prec = torch.linalg.inv(torch.as_tensor(cov, device=dev))
+    z0 = torch.as_tensor(np.random.default_rng(1).normal(size=(8, 3)), device=dev)
+    t0 = time.perf_counter()
+    samples, stats = run_nuts(lambda Z: -0.5 * torch.sum((Z @ prec) * Z, dim=1), z0,
+                              torch.Generator(device=dev).manual_seed(0),
+                              num_warmup=300, num_samples=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(samples.is_cuda, "NUTS draws are not on the card")
+    s = samples.reshape(-1, 3).cpu().numpy()
+    div = float(stats["diverging"].double().mean())
+    mean_err = float(np.abs(s.mean(0)).max())
+    cov_err = float(np.abs(np.cov(s.T) - cov).max())
+    leaves = int(stats["num_leaves"].sum() + stats["warmup_num_leaves"].sum())
+    print(f"phase 15 NUTS correlated Gaussian (card): chains=8 warmup=300 samples=500 "
+          f"wall_s={wall:.2f} leaves={leaves} mean_depth={float(stats['depth'].double().mean()):.3f} "
+          f"divergent={div:.4f} max_mean_err={mean_err:.4f} (gate 0.12) "
+          f"max_cov_err={cov_err:.4f} (gate 0.25) step_sizes="
+          f"{np.round(stats['step_size'].cpu().numpy(), 4).tolist()}")
+    check(div < 0.01, f"NUTS divergences {div:.4f} >= 1%")
+    check(mean_err <= 0.12, f"NUTS mean error {mean_err:.4f} > 0.12")
+    check(cov_err <= 0.25, f"NUTS covariance error {cov_err:.4f} > 0.25")
+    print("phase 15 NUTS Gaussian: ok")
+
+
+def phase_nuts_flagship(dev, out_dir):
+    """run_inference(sampler="nuts", init="advi") on the flagship: finite
+    draws, ncall the exact leapfrog count, K3/K4 on every leaf; r-hat,
+    pulls and depth reported, not gated (the diagonal metric's failure on
+    the alpha_2/f_1 ridge is the reference's own behaviour)."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops import cuda_celerite, cuda_celerite_vjp as vjp
+
+    sub, xbar, va = load_subset()
+    spec = tinf.single_bending_model(sub[:, 0], sub[:, 1], sub[:, 2], xbar, va,
+                                     device=dev, dtype=torch.float32)
+    log_dir = os.path.join(out_dir, "nuts")
+    stats = []
+    run_nuts = tinf.run_nuts
+
+    def spy(*a, **k):
+        out = run_nuts(*a, **k)
+        stats.append(out[1])
+        return out
+
+    tinf.run_nuts = spy
+    cuda_celerite.LAUNCHES = cuda_celerite.TABLES_LAUNCHES = 0
+    vjp.FWD_AUG_LAUNCHES = vjp.BWD_LAUNCHES = 0
+    try:
+        res = tinf.run_inference(spec, sampler="nuts", init="advi", log_dir=log_dir,
+                                 **NUTS_FLAGSHIP)
+        torch.cuda.synchronize()
+    finally:
+        tinf.run_nuts = run_nuts
+    launches = {"celerite_fwd": cuda_celerite.LAUNCHES, "celerite_fwd_aug": vjp.FWD_AUG_LAUNCHES,
+                "celerite_bwd": vjp.BWD_LAUNCHES, "celerite_tables": cuda_celerite.TABLES_LAUNCHES}
+    st = stats[0]
+    leaves = int(st["num_leaves"].sum() + st["warmup_num_leaves"].sum())
+    depth = torch.cat([st["warmup_depth"], st["depth"]], dim=1).double()
+    ref = referee()
+    mean = np.asarray(res["posterior"]["mean"])
+    pulls = (mean - np.asarray(ref["is_mean"])) / np.asarray(ref["is_std"])
+    rhat = np.asarray(res["rhat"], np.float64)
+    iters = NUTS_FLAGSHIP["num_warmup"] + NUTS_FLAGSHIP["num_samples"]
+    print(f"phase 16 NUTS flagship: chains={NUTS_FLAGSHIP['num_chains']} "
+          f"warmup={NUTS_FLAGSHIP['num_warmup']} samples={NUTS_FLAGSHIP['num_samples']} "
+          f"ncall={res['ncall']} leaves={leaves} elapsed_s={res['elapsed_s']:.2f} "
+          f"s_per_iteration={res['elapsed_s'] / iters:.3f} "
+          f"mean_depth={float(depth.mean()):.3f} sampling_mean_depth="
+          f"{float(st['depth'].double().mean()):.3f} "
+          f"divergent={float(st['diverging'].double().mean()):.4f} "
+          f"ess={res['ess']:.1f} launches={launches}")
+    print(f"phase 16 NUTS flagship (reported, not gated): rhat {np.round(rhat, 4).tolist()} "
+          f"pulls vs referee {np.round(pulls, 4).tolist()} step_sizes "
+          f"{np.round(st['step_size'].cpu().numpy(), 5).tolist()}")
+    shape = (NUTS_FLAGSHIP["num_chains"] * NUTS_FLAGSHIP["num_samples"], 6)
+    check(res["samples"].shape == shape and bool(np.isfinite(res["samples"]).all()),
+          f"NUTS samples {res['samples'].shape} not finite of shape {shape}")
+    check(res["ncall"] == leaves, f"NUTS ncall {res['ncall']} != sum of leaves {leaves}")
+    check(min(launches["celerite_fwd_aug"], launches["celerite_bwd"]) > 0,
+          f"the NUTS run launched no K3/K4: {launches}")
+    for rel in (("chains", "equal_weighted_post.txt"), ("info", "results.json")):
+        check(os.path.isfile(os.path.join(log_dir, *rel)), f"{rel} not written")
+    print("phase 16 NUTS flagship: ok")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
@@ -965,20 +1239,29 @@ def main(argv=None) -> int:
     k2_launches, _ = timed("10a", phase_path_a, datasets, dev)
     multi_err, multi_timing = timed("11", phase_multi_adjoint_vs_plain, *specs, datasets)
     many_launches = timed("12", phase_many, dev, args.out, datasets)
+    k0_launches, k0_err, k0_ms, k0_plain_ms, _ = timed("13", phase_tables, *specs)
+    smc_launches = timed("14", phase_smc, dev, args.out)
+    timed("15", phase_nuts_gaussian, dev)
+    nuts_launches = timed("16", phase_nuts_flagship, dev, args.out)
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t_start:.1f} s; "
           f"phase wall_s {walls}; "
           f"launches on the main paths: NS {{'celerite_fwd': {ns_launches}}}, "
           f"ChEES {chees_launches}, multi-dataset no-gradient sweeps "
-          f"{{'celerite_fwd_multi': {k2_launches}}}, run_inference_many {many_launches}")
+          f"{{'celerite_fwd_multi': {k2_launches}}}, run_inference_many {many_launches}, "
+          f"batched_loglike_tables {{'celerite_tables': {k0_launches}}}, SMC {smc_launches}, "
+          f"NUTS {nuts_launches}")
 
-    # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512)
+    # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
+    # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS)
     t512 = timing[512]
+    paths = (chees_launches, smc_launches, nuts_launches)
     rows = {
-        "celerite_fwd": (ns_launches + chees_launches["celerite_fwd"], f32_err, k_ms, p_ms,
-                         k1_cost(PHASE2_BATCHES[0])),
-        "celerite_fwd_aug": (chees_launches["celerite_fwd_aug"], adj_err["celerite_fwd_aug"],
-                             t512["k3"], t512["p3"], t512["cost"][0]),
-        "celerite_bwd": (chees_launches["celerite_bwd"], adj_err["celerite_bwd"],
+        "celerite_fwd": (ns_launches + sum(p["celerite_fwd"] for p in paths), f32_err, k_ms,
+                         p_ms, k1_cost(PHASE2_BATCHES[0])),
+        "celerite_fwd_aug": (sum(p["celerite_fwd_aug"] for p in paths),
+                             adj_err["celerite_fwd_aug"], t512["k3"], t512["p3"],
+                             t512["cost"][0]),
+        "celerite_bwd": (sum(p["celerite_bwd"] for p in paths), adj_err["celerite_bwd"],
                          t512["k4"], t512["p4"], t512["cost"][1]),
         # K2 and the per-lane K3/K4 at the run_inference_many batch (B = 1024)
         "celerite_fwd_multi": (k2_launches, k2_err, k2_ms, k2_plain_ms,
@@ -990,6 +1273,9 @@ def main(argv=None) -> int:
         "celerite_bwd_multi": (many_launches["celerite_bwd_multi"],
                                multi_err["celerite_bwd_multi"], multi_timing["k4"],
                                multi_timing["p4"], multi_timing["cost4"]),
+        # K0 at the final-sweep width (B = 4096) of its entry point's run
+        "celerite_tables": (k0_launches, k0_err, k0_ms, k0_plain_ms,
+                            tables_cost(TABLES_BATCHES[1])),
     }
     kernels = []
     for name, (launches, err, ms, plain_ms, cost) in rows.items():

@@ -6,12 +6,14 @@ celerite likelihoods), on an NVIDIA H100. The JAX package ``pioran_tpu``
 stays beside it as the reference. Ported so far: the PSD models, the
 celerite kernel algebra, the PSD -> celerite approximation, the priors,
 the batched celerite log-likelihood and its gradient (hand-written CUDA
-kernels on the card, their plain PyTorch versions on the CPU), nested
-sampling, ChEES-HMC, ADVI and the flagship single-bending model with
-``run_inference(sampler="ns" | "chees" | "advi")``, and the multi-dataset
-axis: ``run_inference_many`` over ragged light curves on the ragged
-batched likelihood ``batched_loglike_multi``. Entry points run on the
-card unless given ``device="cpu"``.
+kernels on the card, their plain PyTorch versions on the CPU), the
+table-streaming likelihood (``ops.cuda_celerite.batched_loglike_tables``),
+tempered SMC, nested sampling, NUTS, ChEES-HMC, ADVI and the flagship
+single-bending model with ``run_inference(sampler="smc" | "ns" | "nuts" |
+"chees" | "advi")``, and the multi-dataset axis: ``run_inference_many``
+over ragged light curves on the ragged batched likelihood
+``batched_loglike_multi``. Entry points run on the card unless given
+``device="cpu"``.
 """
 
 from .config import require_cuda

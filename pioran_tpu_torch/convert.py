@@ -1,8 +1,8 @@
 """Carry parameters and sampler state across from numpy.
 
 The port's tests feed the JAX package and this one the same inputs:
-the JAX side's prior sets, sampler states, kernel coefficients and
-ragged multi-dataset arrays are converted to numpy there and rebuilt
+the JAX side's prior sets, sampler states, kernel coefficients, ragged
+multi-dataset arrays and likelihood tables are converted to numpy there and rebuilt
 here with these helpers.
 """
 
@@ -18,7 +18,7 @@ from .config import DEFAULT_DTYPE, resolve_device
 from .models.kernels import CeleriteKernel
 
 __all__ = ["prior_set_from_numpy", "ns_state_from_numpy", "coefficients_from_numpy",
-           "multi_inputs_from_numpy"]
+           "multi_inputs_from_numpy", "tables_from_numpy"]
 
 
 def prior_set_from_numpy(
@@ -83,3 +83,12 @@ def multi_inputs_from_numpy(T, DT, Y, E, n_valid, device=None,
     dev = resolve_device(device)
     out = [torch.as_tensor(np.asarray(x), device=dev).to(dtype) for x in (T, DT, Y, E)]
     return (*out, torch.as_tensor(np.asarray(n_valid), device=dev).to(torch.int32))
+
+
+def tables_from_numpy(U, V, phi, device=None, dtype: torch.dtype = DEFAULT_DTYPE) -> tuple:
+    """The U, V, phi tables of the JAX package's ``build_tables`` ((N, R, B)
+    numpy arrays, the batch last) as the port's tensors, the input of
+    :func:`~pioran_tpu_torch.ops.cuda_celerite.loglike_from_tables`; on the
+    card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    return tuple(torch.tensor(np.asarray(x), dtype=dtype, device=dev) for x in (U, V, phi))

@@ -1,8 +1,9 @@
 """High-level inference entry points, PyTorch port of ``pioran_tpu.inference``.
 
 What is ported: the flagship single-bending power-law model
-(:func:`single_bending_model`) and :func:`run_inference` with
-``sampler="ns"``, ``"chees"`` (ChEES-HMC, optionally seeded by
+(:func:`single_bending_model`) and :func:`run_inference` with every
+sampler of the JAX package: ``sampler="smc"`` (the default), ``"ns"``,
+``"nuts"``, ``"chees"`` (NUTS and ChEES-HMC optionally seeded by
 :func:`advi_seeded_inits`) and ``"advi"``, which write their results in
 the ultranest layout (``chains/equal_weighted_post.txt``,
 ``info/results.json``); and :func:`run_inference_many`, which fits the
@@ -41,19 +42,13 @@ from .priors import (
 from .samplers.advi import run_advi
 from .samplers.chees import run_chees
 from .samplers.ns import equal_weight_indices, run_ns
+from .samplers.nuts import run_nuts
+from .samplers.smc import run_smc
 from .utils.insertion import insertion_order_test
 from .utils.mcmc_stats import summarize_chains
 
 __all__ = ["GPModelSpec", "single_bending_model", "advi_seeded_inits",
            "run_inference", "run_inference_many"]
-
-# samplers of the JAX package that are not ported yet, with the ROADMAP
-# item that ports them
-_NOT_PORTED = {
-    "smc": "SMC and NUTS (ROADMAP queue 1, step 9)",
-    "nuts": "SMC and NUTS (ROADMAP queue 1, step 9)",
-}
-
 
 @dataclass
 class GPModelSpec:
@@ -118,6 +113,9 @@ def _write_ultranest(log_dir, names, theta, results):
 
 
 def _posterior_summary(theta):
+    if theta.shape[0] == 0:  # a run asked for no draws
+        nan = [float("nan")] * theta.shape[1]
+        return {k: nan for k in ("mean", "stdev", "median", "errlo", "errup")}
     return {
         "mean": theta.mean(axis=0).tolist(),
         "stdev": theta.std(axis=0).tolist(),
@@ -306,17 +304,43 @@ def _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc, ns_move, frac_re
     }
 
 
+def _chain_inits(spec, gen, num_chains, init):
+    """(num_chains, dim) unconstrained starts for the gradient samplers:
+    prior draws (``init="prior"``) or an overdispersed ADVI fit
+    (``init="advi"``)."""
+    prior = spec.prior
+    if init == "advi":
+        return advi_seeded_inits(spec, gen, num_chains)
+    if init == "prior":
+        return prior.to_unconstrained(prior.sample(
+            (num_chains,), generator=gen, dtype=spec.dtype, device=spec.device))
+    raise ValueError(f"init must be 'prior' or 'advi', got {init!r}")
+
+
+def _mcmc_entries(chains_th, ncall):
+    """The MCMC entries of the results from per-chain draws (C, S, dim)
+    in theta space."""
+    if chains_th.shape[1] == 0:  # a run asked for no draws: no diagnostics
+        nan = [float("nan")] * chains_th.shape[2]
+        conv = {"rhat": nan, "ess_bulk": nan, "ess_tail": nan}
+    else:
+        conv = summarize_chains(chains_th)
+    ess_b = np.asarray(conv["ess_bulk"], np.float64)
+    return {
+        "ncall": ncall,
+        "rhat": conv["rhat"],
+        "ess_bulk": conv["ess_bulk"],
+        "ess_tail": conv["ess_tail"],
+        # all-NaN for tiny runs (ESS undefined below 4 draws)
+        "ess": (float(np.nanmin(ess_b)) if np.any(np.isfinite(ess_b)) else float("nan")),
+    }
+
+
 def _run_chees(spec, gen, num_chains, num_warmup, num_samples, init, mass,
                hmc_max_leapfrogs):
     """ChEES-HMC: (theta draws, the MCMC entries of the results)."""
     prior = spec.prior
-    if init == "advi":
-        z0 = advi_seeded_inits(spec, gen, num_chains)
-    elif init == "prior":
-        z0 = prior.to_unconstrained(prior.sample(
-            (num_chains,), generator=gen, dtype=spec.dtype, device=spec.device))
-    else:
-        raise ValueError(f"init must be 'prior' or 'advi', got {init!r}")
+    z0 = _chain_inits(spec, gen, num_chains, init)
     samples_z, stats = run_chees(
         spec.logpost_batch, z0, gen, num_warmup=num_warmup,
         num_samples=num_samples, mass=mass, max_leapfrogs=hmc_max_leapfrogs)
@@ -324,16 +348,42 @@ def _run_chees(spec, gen, num_chains, num_warmup, num_samples, init, mass,
         # (S, C, dim) -> (C, S, dim): per-chain draws, in theta space
         chains_th = prior.from_unconstrained(samples_z.transpose(0, 1)).cpu().numpy()
     theta = chains_th.transpose(1, 0, 2).reshape(-1, prior.dim)
-    conv = summarize_chains(chains_th)
-    ess_b = np.asarray(conv["ess_bulk"], np.float64)
+    # every leapfrog evaluates value+gradient for all chains
+    return theta, _mcmc_entries(chains_th, int(stats["n_leapfrogs"].sum()) * num_chains)
+
+
+def _run_nuts(spec, gen, num_chains, num_warmup, num_samples, init):
+    """NUTS, C chains with per-chain adaptation: (theta draws, chain by
+    chain, and the MCMC entries of the results). ``ncall`` is the exact
+    count of leapfrogs (value+gradient evaluations), warmup included."""
+    prior = spec.prior
+    z0 = _chain_inits(spec, gen, num_chains, init)
+    chains_z, stats = run_nuts(spec.logpost_batch, z0, gen, num_warmup=num_warmup,
+                               num_samples=num_samples)
+    with torch.no_grad():
+        chains_th = prior.from_unconstrained(chains_z).cpu().numpy()
+    ncall = int(stats["num_leaves"].sum()) + int(stats["warmup_num_leaves"].sum())
+    return chains_th.reshape(-1, prior.dim), _mcmc_entries(chains_th, ncall)
+
+
+def _run_smc(spec, gen, num_particles, num_moves, smc_move):
+    """Adaptive-tempering SMC: (theta draws, the SMC entries of the
+    results)."""
+    prior = spec.prior
+    z0 = prior.to_unconstrained(prior.sample(
+        (num_particles,), generator=gen, dtype=spec.dtype, device=spec.device))
+
+    def loglike_z_batch(Z):
+        return spec.loglike_batch(prior.from_unconstrained(Z))
+
+    res = run_smc(loglike_z_batch, prior.unconstrained_logpdf, z0, gen,
+                  num_moves=num_moves, move=smc_move)
+    with torch.no_grad():
+        theta = prior.from_unconstrained(res.particles).cpu().numpy()
     return theta, {
-        # every leapfrog evaluates value+gradient for all chains
-        "ncall": int(stats["n_leapfrogs"].sum()) * num_chains,
-        "rhat": conv["rhat"],
-        "ess_bulk": conv["ess_bulk"],
-        "ess_tail": conv["ess_tail"],
-        # all-NaN for tiny runs (ESS undefined below 4 draws)
-        "ess": (float(np.nanmin(ess_b)) if np.any(np.isfinite(ess_b)) else float("nan")),
+        "logz": float(res.logZ),
+        "num_temper_steps": int(res.num_steps),
+        "ncall": int(res.num_steps) * num_moves * num_particles,
     }
 
 
@@ -357,13 +407,16 @@ def _run_advi(spec, gen, num_warmup, num_samples):
 
 def run_inference(
     spec: GPModelSpec,
-    sampler: str = "ns",
+    sampler: str = "smc",
     seed: int = 0,
     num_particles: int = 2048,
     num_chains: int = 16,
     num_warmup: int = 500,
     num_samples: int = 1000,
+    num_moves: int = 8,
     log_dir: Optional[str] = None,
+    smc_move: str = "mala",
+    resume: bool = False,
     num_ns_mcmc: int = 8,
     ns_move: str = "slice",
     frac_remain: float = 1e-2,
@@ -371,37 +424,50 @@ def run_inference(
     mass: str = "diag",
     hmc_max_leapfrogs: int = 128,
 ) -> Dict:
-    """Run NS, ChEES-HMC or ADVI on a model spec and write its artifacts.
+    """Run SMC, NS, NUTS, ChEES-HMC or ADVI on a model spec and write its
+    artifacts.
 
-    ``sampler="ns"`` is the direct ultranest analog: ``num_particles``
-    live points, evidence logZ with an ultranest-style logzerr, an
-    equal-weighted posterior and the insertion-order MWW test.
+    ``sampler="smc"`` (the default) runs adaptive-tempering SMC with
+    ``num_particles`` particles from prior draws and ``num_moves`` moves
+    (``smc_move`` "mala" or "rwm") a temper step, and reports the evidence
+    logZ and the number of temper steps. ``sampler="ns"`` is the direct
+    ultranest analog: ``num_particles`` live points, evidence logZ with an
+    ultranest-style logzerr, an equal-weighted posterior and the
+    insertion-order MWW test. ``sampler="nuts"`` runs ``num_chains`` NUTS
+    chains, each with its own dual-averaged step size and diagonal mass
+    matrix, for ``num_warmup`` + ``num_samples`` iterations.
     ``sampler="chees"`` runs ``num_chains`` ChEES-HMC chains for
     ``num_warmup`` + ``num_samples`` iterations (at most
     ``hmc_max_leapfrogs`` leapfrogs each) with a ``mass`` "diag" or
-    "dense" metric, started from prior draws (``init="prior"``) or from
-    an overdispersed ADVI fit (``init="advi"``, :func:`advi_seeded_inits`),
-    and reports split-r̂ and bulk/tail ESS per parameter.
-    ``sampler="advi"`` fits mean-field ADVI for ``num_warmup`` +
-    ``num_samples`` steps and reports ``num_samples`` draws and the ELBO
-    ``logz_lower``.
+    "dense" metric. NUTS and ChEES start from prior draws
+    (``init="prior"``) or from an overdispersed ADVI fit (``init="advi"``,
+    :func:`advi_seeded_inits`), and report split-r̂ and bulk/tail ESS per
+    parameter. ``sampler="advi"`` fits mean-field ADVI for ``num_warmup``
+    + ``num_samples`` steps and reports ``num_samples`` draws and the ELBO
+    ``logz_lower``. ``ncall`` counts likelihood evaluations: temper steps
+    x moves x particles for SMC, the exact leapfrogs for NUTS.
 
     Random numbers come from one ``torch.Generator`` on the spec's device
     seeded with ``seed``. Returns a results dict with posterior samples
     (theta space), summary moments and the sampler's own entries, with
     the JAX package's keys; with ``log_dir``, writes
-    ``chains/equal_weighted_post.txt`` and ``info/results.json``. SMC and
-    NUTS raise ``NotImplementedError``.
+    ``chains/equal_weighted_post.txt`` and ``info/results.json``.
+    ``resume=True`` raises ``NotImplementedError`` until checkpointing is
+    ported.
     """
-    if sampler in _NOT_PORTED:
+    if resume:
         raise NotImplementedError(
-            f"sampler={sampler!r} is not ported to pioran_tpu_torch yet: "
-            f"{_NOT_PORTED[sampler]}")
+            "run_inference(resume=True) is not ported to pioran_tpu_torch yet: "
+            "it comes with checkpointing (ROADMAP queue 1, step 13)")
     t0 = time.time()
     gen = torch.Generator(device=spec.device).manual_seed(seed)
-    if sampler == "ns":
+    if sampler == "smc":
+        theta, extra = _run_smc(spec, gen, num_particles, num_moves, smc_move)
+    elif sampler == "ns":
         theta, extra = _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc,
                                ns_move, frac_remain)
+    elif sampler == "nuts":
+        theta, extra = _run_nuts(spec, gen, num_chains, num_warmup, num_samples, init)
     elif sampler == "chees":
         theta, extra = _run_chees(spec, gen, num_chains, num_warmup, num_samples,
                                   init, mass, hmc_max_leapfrogs)
@@ -414,18 +480,17 @@ def run_inference(
 
     # final per-sample likelihoods, chunked
     TH_all = torch.as_tensor(theta, dtype=spec.dtype, device=spec.device)
-    loglikes = np.concatenate([
+    loglikes = np.concatenate([np.zeros(0)] + [
         spec.loglike_batch(TH_all[i:i + _FINAL_LOGLIKE_CHUNK]).cpu().numpy()
         for i in range(0, TH_all.shape[0], _FINAL_LOGLIKE_CHUNK)])
+    ml = ({"logl": float(np.max(loglikes)), "point": theta[int(np.argmax(loglikes))].tolist()}
+          if loglikes.size else {"logl": float("nan"), "point": [float("nan")] * theta.shape[1]})
     results = {
         "paramnames": spec.names,
         "sampler": sampler,
         "elapsed_s": elapsed,
         "posterior": _posterior_summary(theta),
-        "maximum_likelihood": {
-            "logl": float(np.max(loglikes)),
-            "point": theta[int(np.argmax(loglikes))].tolist(),
-        },
+        "maximum_likelihood": ml,
         **extra,
     }
     if "ess" in results and elapsed > 0:

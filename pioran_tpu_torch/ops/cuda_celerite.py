@@ -6,7 +6,10 @@ kernel ``_fused_kernel`` becomes ``csrc/celerite_fwd.cu``, a
 warp-per-chain CUDA kernel built by nvcc at first use (see ``_build.py``),
 in two instantiations: K1 for a time grid shared by the chains (launched
 by ``batched_loglike_pallas_fused`` on the TPU) and K2 for per-chain
-ragged grids (``batched_loglike_pallas_multi``).
+ragged grids (``batched_loglike_pallas_multi``). The table-streaming TPU
+kernel ``_kernel`` (K0, launched by ``batched_loglike_pallas``) becomes
+``csrc/celerite_tables.cu``: it reads the U, V and phi tables that
+:func:`build_tables` writes instead of building them.
 
 - :func:`batched_loglike_plain` and :func:`batched_loglike_multi_plain`
   are Python loops over N on (B, J, J) tensors with the kernels' math:
@@ -19,8 +22,15 @@ ragged grids (``batched_loglike_pallas_multi``).
   and whose backward is the reverse sweep K4
   (``ops/cuda_celerite_vjp.py``), or their plain versions on the CPU.
 
-``LAUNCHES`` (K1) and ``MULTI_LAUNCHES`` (K2) count kernel launches, so
-a run can show that its main path went through the kernels.
+- :func:`build_tables`, :func:`loglike_from_tables` and
+  :func:`batched_loglike_tables` are K0's entry points, with
+  :func:`loglike_from_tables_plain` its plain version. K0 has no adjoint
+  (nor has the TPU kernel): its wrappers raise on an input that requires
+  a gradient.
+
+``LAUNCHES`` (K1), ``MULTI_LAUNCHES`` (K2) and ``TABLES_LAUNCHES`` (K0)
+count kernel launches, so a run can show that its main path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -37,11 +47,15 @@ from .cuda_celerite_vjp import (
     MAX_TERMS, _lanes, _masked, bwd, check_inputs, fwd_aug, live_steps, log2pi_terms)
 
 __all__ = ["batched_loglike", "batched_loglike_plain", "batched_loglike_multi",
-           "batched_loglike_multi_plain", "MAX_TERMS"]
+           "batched_loglike_multi_plain", "build_tables", "loglike_from_tables",
+           "loglike_from_tables_plain", "batched_loglike_tables", "MAX_TERMS"]
 
 LAUNCHES = 0
 MULTI_LAUNCHES = 0
+TABLES_LAUNCHES = 0
+_LOG2PI = math.log(2.0 * math.pi)
 _LIB: Optional[ctypes.CDLL] = None
+_TABLES_LIB: Optional[ctypes.CDLL] = None
 
 
 def _plain(a, b, c, d, t, y, sigma2, dt, n_valid):
@@ -246,3 +260,155 @@ def batched_loglike_multi(a, b, c, d, t, y, sigma2, n_valid, dt=None):
     n_valid = torch.as_tensor(n_valid, device=a.device).to(torch.int32)
     sigma2 = torch.where(live_steps(n_valid, t.shape[-1]), sigma2, torch.ones_like(sigma2))
     return _dispatch(a, b, c, d, t, y, sigma2, dt, n_valid)
+
+
+# ---------------------------------------------------------------------------
+# K0: the likelihood from streamed U, V, phi tables
+# ---------------------------------------------------------------------------
+
+
+def build_tables(a, b, c, d, t):
+    """U, V, phi tables of shape (N, R, B), R = 2J, the batch last: the
+    layout of the JAX package's ``build_tables`` and the input of K0.
+
+    a, b, c, d: (B, J) coefficients; t: (N,) sorted times shared by the
+    chains. Rows are in the block layout [J cos-type; J sin-type] (a row
+    permutation of :func:`~pioran_tpu_torch.ops.celerite.build_uv`'s
+    interleaved one): U = [a cos + b sin; a sin - b cos], V = [cos; sin],
+    phi = [ec; ec] with ec = exp_neg(c dt), dt = diff(t) in the working
+    dtype, and an all-zero first row of phi.
+    """
+    aT, bT, cT, dT = a.T, b.T, c.T, d.T  # (J, B)
+    td = t[:, None, None] * dT[None]  # (N, J, B)
+    co, si = torch.cos(td), torch.sin(td)
+    U = torch.cat([aT * co + bT * si, aT * si - bT * co], dim=1)
+    V = torch.cat([co, si], dim=1)
+    ec = exp_neg(torch.diff(t)[:, None, None] * cT[None])  # (N-1, J, B)
+    phi = torch.cat([ec, ec], dim=1)
+    phi = torch.cat([torch.zeros_like(phi[:1]), phi], dim=0)
+    return U, V, phi
+
+
+def loglike_from_tables_plain(U, V, phi, y, sigma2, suma):
+    """Plain PyTorch version of K0: (B,) log-likelihoods.
+
+    U, V, phi: (N, R, B) tables; y, sigma2: (B, N); suma: (B,) the sum of
+    each chain's a. A Python loop over N on (B, R, R) states with the TPU
+    kernel's statements: T = S + D W W^T, S = (phi phi^T) o T, q = S U,
+    D = suma + sigma2 - U.q, W = (V - q) / D, f = phi o (f + W zp),
+    zp = y - U.f, Kahan sums of log|D| and zp^2 / D, and -inf unless
+    every D > 0 and the result is finite.
+    """
+    N, R, B = U.shape
+    S = U.new_zeros(B, R, R)
+    f, W = U.new_zeros(B, R), U.new_zeros(B, R)
+    Dp, zpp = U.new_zeros(B), U.new_zeros(B)
+    logdet, clog, quad, cquad = (U.new_zeros(B) for _ in range(4))
+    minD = torch.full((B,), math.inf, dtype=U.dtype, device=U.device)
+    for n in range(N):
+        Un, Vn, pn = U[n].T, V[n].T, phi[n].T  # (B, R)
+        S = (pn[:, :, None] * pn[:, None, :]) * (
+            S + Dp[:, None, None] * (W[:, :, None] * W[:, None, :]))
+        q = torch.sum(S * Un[:, None, :], dim=2)
+        Dn = suma + sigma2[:, n] - torch.sum(Un * q, dim=1)
+        Wn = (Vn - q) / Dn[:, None]
+        f = pn * (f + W * zpp[:, None])
+        zpn = y[:, n] - torch.sum(Un * f, dim=1)
+        W, Dp, zpp = Wn, Dn, zpn
+        x2 = torch.log(torch.abs(Dn)) - clog
+        t2 = logdet + x2
+        clog = (t2 - logdet) - x2
+        logdet = t2
+        x3 = zpn * zpn / Dn - cquad
+        t3 = quad + x3
+        cquad = (t3 - quad) - x3
+        quad = t3
+        minD = torch.minimum(minD, Dn)
+    ll = -0.5 * (logdet + quad + N * _LOG2PI)
+    ok = (minD > 0) & torch.isfinite(ll)
+    return torch.where(ok, ll, torch.full_like(ll, -math.inf))
+
+
+def _tables_lib() -> ctypes.CDLL:
+    global _TABLES_LIB
+    if _TABLES_LIB is None:
+        lib = _build.load("celerite_tables")
+        for fn in (lib.celerite_tables_f32, lib.celerite_tables_f64):
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.celerite_tables_error_string.argtypes = [ctypes.c_int]
+        lib.celerite_tables_error_string.restype = ctypes.c_char_p
+        _TABLES_LIB = lib
+    return _TABLES_LIB
+
+
+def _check_tables(U, V, phi, y, sigma2, suma):
+    """Raise ``ValueError`` on what K0 does not take: an odd R, R > 64
+    (J > 32), a dtype other than float32/float64, mixed dtypes or
+    devices, or wrong shapes."""
+    if U.dim() != 3:
+        raise ValueError(f"U must be (N, R, B), got {tuple(U.shape)}")
+    N, R, B = U.shape
+    if R % 2 or R == 0:
+        raise ValueError(f"the tables need an even R = 2J > 0 rows, got R={R}")
+    if R // 2 > MAX_TERMS:
+        raise ValueError(
+            f"the CUDA celerite kernels take at most {MAX_TERMS} terms "
+            f"(one warp lane each), got J={R // 2}")
+    if U.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"float32 or float64 expected, got {U.dtype}")
+    for name, x, shape in (("V", V, (N, R, B)), ("phi", phi, (N, R, B)), ("y", y, (B, N)),
+                           ("sigma2", sigma2, (B, N)), ("suma", suma, (B,))):
+        if x.device != U.device or x.dtype != U.dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {U.dtype} {shape} on {U.device}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _launch_tables(U, V, phi, y, sigma2, suma):
+    """Run K0 on CUDA tensors; raise on what it does not take."""
+    global TABLES_LAUNCHES
+    _check_tables(U, V, phi, y, sigma2, suma)
+    N, R, B = U.shape
+    out = torch.empty(B, dtype=U.dtype, device=U.device)
+    if B == 0 or N == 0:
+        return out
+    args = [x.contiguous() for x in (U, V, phi, y, sigma2, suma)]
+    lib = _tables_lib()
+    fn = lib.celerite_tables_f32 if U.dtype == torch.float32 else lib.celerite_tables_f64
+    with torch.cuda.device(U.device):
+        stream = torch.cuda.current_stream(U.device).cuda_stream
+        err = fn(*[x.data_ptr() for x in args], out.data_ptr(), B, R // 2, N, stream)
+    if err != 0:
+        raise RuntimeError(
+            "celerite_tables launch failed: "
+            + lib.celerite_tables_error_string(err).decode())
+    TABLES_LAUNCHES += 1
+    return out
+
+
+def loglike_from_tables(U, V, phi, y, sigma2, suma):
+    """(B,) log-likelihoods from the (N, R, B) tables of
+    :func:`build_tables`, y and sigma2 (B, N) and suma (B,), the sum of
+    each chain's a: K0 for CUDA tensors (or it raises), its plain version
+    for CPU tensors. K0 has no adjoint, so an input that requires a
+    gradient raises ``ValueError`` instead of yielding a wrong one."""
+    args = (U, V, phi, y, sigma2, suma)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        raise ValueError(
+            "the table-streaming likelihood (K0) has no gradient; use batched_loglike "
+            "(K3/K4) for one, or call this under torch.no_grad()")
+    if U.is_cuda:
+        return _launch_tables(*args)
+    return loglike_from_tables_plain(*args)
+
+
+def batched_loglike_tables(a, b, c, d, t, y, sigma2):
+    """The batched celerite log-likelihood through the table-streaming
+    kernel, (B,): :func:`build_tables`, then :func:`loglike_from_tables`
+    with suma = sum(a). The counterpart of the JAX package's
+    ``batched_loglike_pallas``; a, b, c, d (B, J), t (N,) shared, y and
+    sigma2 (B, N). The spacings are diff(t) in the working dtype. No
+    gradient: an input that requires one raises ``ValueError``."""
+    U, V, phi = build_tables(a, b, c, d, t)
+    return loglike_from_tables(U, V, phi, y, sigma2, torch.sum(a, dim=1))

@@ -303,3 +303,63 @@ def test_multi_backward_on_card_runs_the_kernels_only(card, monkeypatch):
     with torch.no_grad():
         cuda_celerite.batched_loglike_multi(*args, nv, dt)
     assert counts() == (n2 + 1, n3 + 1, n4 + 1)
+
+
+# ---------------------------------------------------------------------------
+# the table-streaming kernel K0 (celerite_tables)
+# ---------------------------------------------------------------------------
+
+
+# f64: the kernel and the plain loop differ only in the order of their
+# sums; f32: as chip_smoke.py (0.05 nats, K1's gate)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
+@pytest.mark.parametrize("J", [3, 20, 32])
+def test_tables_kernel_matches_plain_on_card(card, dtype, tol, J):
+    """K0 on tables from build_tables, a ragged batch edge (37 chains), J
+    across the kernel's widths, a non-PD lane; one launch per call."""
+    a, b, c, d, t, y, s2 = (torch.as_tensor(x, dtype=dtype, device=card)
+                            for x in _problem(37, J, 300, seed=J))
+    U, V, phi = cuda_celerite.build_tables(a, b, c, d, t)
+    before = cuda_celerite.TABLES_LAUNCHES
+    k = cuda_celerite.loglike_from_tables(U, V, phi, y, s2, a.sum(1))
+    assert cuda_celerite.TABLES_LAUNCHES == before + 1
+    p = cuda_celerite.loglike_from_tables_plain(U, V, phi, y, s2, a.sum(1))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(k), torch.isneginf(p)) and bool(k[0] == -math.inf)
+    fin = torch.isfinite(p)
+    assert int(fin.sum()) == 36
+    err = (k[fin] - p[fin]).abs()
+    if dtype == torch.float64:
+        err = err / p[fin].abs()
+    assert float(err.max()) <= tol
+
+
+@pytest.mark.cuda
+def test_tables_kernel_is_k1_on_card(card):
+    """float64: K0 through batched_loglike_tables equals K1 on the same
+    inputs (no host spacings) within 1e-9 relative."""
+    args = [torch.as_tensor(x, device=card) for x in _problem(70, 20, 485, seed=11)]
+    k0 = cuda_celerite.batched_loglike_tables(*args)
+    k1 = batched_loglike(*args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(k1)
+    assert torch.equal(fin, torch.isfinite(k0))
+    assert float(((k0[fin] - k1[fin]).abs() / k1[fin].abs()).max()) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_tables_wrapper_rejects_on_card(card, monkeypatch):
+    """A CUDA tensor never reaches the plain loop; what K0 does not take
+    raises."""
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(cuda_celerite, "loglike_from_tables_plain", refuse)
+    a, b, c, d, t, y, s2 = (torch.as_tensor(x, device=card) for x in _problem(4, 5, 20, seed=1))
+    U, V, phi = cuda_celerite.build_tables(a, b, c, d, t)
+    cuda_celerite.loglike_from_tables(U, V, phi, y, s2, a.sum(1))
+    with pytest.raises(ValueError, match="sigma2"):
+        cuda_celerite.loglike_from_tables(U, V, phi, y, s2.float(), a.sum(1))
+    with pytest.raises(ValueError, match="no gradient"):
+        cuda_celerite.batched_loglike_tables(a.requires_grad_(True), b, c, d, t, y, s2)
