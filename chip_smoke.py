@@ -431,7 +431,7 @@ def adjoint_cost(B, J, N, kc, item, B_live):
 
 def phase_adjoint_vs_plain(spec64, spec32):
     from pioran_tpu_torch.ops.cuda_celerite_vjp import (
-        KC, bwd, bwd_plain, fwd_aug, fwd_aug_plain, residual_bytes)
+        KC, bwd, bwd_launch_shape, bwd_plain, fwd_aug, fwd_aug_plain, residual_bytes)
     from pioran_tpu_torch.samplers.chees import batch_value_and_grad
 
     dev = spec64.device
@@ -487,7 +487,7 @@ def phase_adjoint_vs_plain(spec64, spec32):
           + " ".join(f"{n}={e:.2e}" for n, e in zip(ADJ_NAMES, worst32)))
 
     timing = {}
-    for B in (512, 4096):
+    for B in (16, 512, 4096):  # the NUTS leaf batch, the ChEES batch, large
         a, b, c, d, y, s2 = (x.float() for x in flagship_inputs(spec32, B, gen))
         args = (a, b, c, d, t64.float(), y, s2)
         ll, res = fwd_aug(*args, dt=dt64)
@@ -502,12 +502,16 @@ def phase_adjoint_vs_plain(spec64, spec32):
             p4 = cuda_ms(lambda: bwd_plain(*args, res, g, dt=dt64), 1)  # noqa: B023
         cost = adjoint_cost(B, 20, 485, KC, 4, int(g.sum()))
         timing[B] = dict(k3=k3, k4=k4, vg=vg, p3=p3, p4=p4, cost=cost)
-        tb, ck, sc = residual_bytes(B, 20, 485, KC, torch.float32)
+        tb, ck = residual_bytes(B, 20, 485, KC, torch.float32)
+        cpb, ks, smem = bwd_launch_shape(torch.float32, 20, KC, B,
+                                         torch.cuda.get_device_properties(dev).multi_processor_count)
         print(f"phase 6 times f32 B={B}: K3_ms={k3:.4f} K4_ms={k4:.4f} "
+              f"K3_us_per_step={k3 * 1e3 / 485:.3f} K4_us_per_step={k4 * 1e3 / 485:.3f} "
               f"logpost_value_and_grad_ms={vg:.3f} value_grad_evals_per_s={B / vg * 1e3:.1f}"
               + (f" K3_plain_ms={p3:.1f} K4_plain_ms={p4:.1f}" if p3 else "")
               + f" K3_bound_ms={bound(*cost[0])[0]:.4f} K4_bound_ms={bound(*cost[1])[0]:.4f}"
-              f" residual_bytes tables={tb} ckpts={ck} k4_scratch={sc}")
+              f" residual_bytes tables={tb} ckpts={ck} K4 chains_per_block={cpb} "
+              f"sub_chunk={ks} smem_bytes_per_block={smem}")
     return max_abs, timing
 
 
@@ -577,7 +581,7 @@ def phase_long_n_grad(dev):
           f"max |ll32-ll64|={float((ll32.double() - ll64).abs().max()):.4f} nats; f32-vs-f64 "
           "grad rel errs " + " ".join(f"{n}={e:.2e}" for n, e in zip(ADJ_NAMES[8:], errs))
           + f"; K3+K4 s f64={secs[torch.float64]:.3f} f32={secs[torch.float32]:.3f}; "
-          f"residual+scratch bytes f64={by['float64']} f32={by['float32']}")
+          f"residual bytes f64={by['float64']} f32={by['float32']}")
 
 
 def phase_chees(dev, out_dir):

@@ -29,7 +29,10 @@ CUDA tensors go to the kernels, or raise; CPU tensors go to
 There is no counterpart of the TPU code's VMEM tiling (``auto_tiles``,
 ``fits_vmem``), its scan fallback, or its ``SEG_STEPS`` launch
 segmentation: the tables live in device memory and one launch runs all N
-steps. ``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count launches of the
+steps. K4 keeps the T blocks it recomputes for a chunk in shared memory,
+as the TPU kernel keeps them in VMEM; :func:`bwd_launch_shape` chooses
+the chains per block and the sub-chunk length that fit.
+``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count launches of the
 shared-grid kernels, ``FWD_AUG_MULTI_LAUNCHES`` and ``BWD_MULTI_LAUNCHES``
 those of the per-lane ones.
 """
@@ -46,12 +49,15 @@ from .. import _build
 from .celerite import exp_neg
 
 __all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "residual_bytes",
-           "check_inputs", "spacings", "live_steps", "log2pi_terms", "KC", "MAX_TERMS"]
+           "bwd_launch_shape", "check_inputs", "spacings", "live_steps", "log2pi_terms",
+           "KC", "MAX_TERMS"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
 MAX_TERMS = 32  # one warp lane per celerite term
 KC = 8          # steps between T checkpoints
+SMEM_BYTES = 232_448  # shared memory one block may use on the H100 (sm_90)
+H100_SMS = 132
 FWD_AUG_LAUNCHES = 0
 BWD_LAUNCHES = 0
 FWD_AUG_MULTI_LAUNCHES = 0
@@ -129,12 +135,42 @@ def check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid=None):
 
 
 def residual_bytes(B: int, J: int, N: int, kc: int = KC,
-                   dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
-    """Bytes of (the per-step tables, the T checkpoints, K4's scratch)."""
+                   dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """Bytes of (the per-step tables, the T checkpoints) that K3 writes
+    and K4 reads."""
     item = torch.empty((), dtype=dtype).element_size()
     nck = -(-N // kc)
-    return (item * B * N * (4 * J + 2), item * B * nck * 3 * J * J,
-            item * B * kc * 4 * J * J)
+    return item * B * N * (4 * J + 2), item * B * nck * 3 * J * J
+
+
+def bwd_launch_shape(dtype: torch.dtype, J: int, kc: int, B: int = 1,
+                     sms: int = H100_SMS) -> Tuple[int, int, int]:
+    """K4's launch: (chains per block, sub-chunk length ks, shared-memory
+    bytes per block).
+
+    A warp (one chain) holds ks steps of its chunk's recomputed T blocks
+    (three JP x JP blocks a step, JP = J rounded up to a multiple of 4,
+    rows padded to an odd number of 16-byte vectors), two checkpoints, two
+    residual buffers of ks steps, ks rows of ec and two column rows: the
+    layout ``bwd_warp_len`` in ``csrc/celerite_adjoint.cu`` computes. ks
+    is the whole chunk (at most 32 steps) where one chain fits the
+    block's 232,448 bytes, else the longest that does; up to four chains
+    share a block, but no more than B spread over the card's SMs needs.
+    """
+    item = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // item
+    jp = -(-J // 4) * 4
+    rs = jp if (jp // vec) % 2 else jp + vec
+
+    def warp_bytes(ks):
+        return item * (ks * 3 * jp * rs + 6 * J * rs + 2 * (4 * ks * jp + 4 * ks + 4)
+                       + 32 * ks + 256)
+
+    ks = min(kc, 32)
+    while ks > 1 and warp_bytes(ks) > SMEM_BYTES:
+        ks -= 1
+    cpb = max(1, min(4, -(-B // sms), SMEM_BYTES // warp_bytes(ks)))
+    return cpb, ks, cpb * warp_bytes(ks)
 
 
 # ---------------------------------------------------------------------------
@@ -370,13 +406,16 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("celerite_adjoint")
-        # the per-lane entries take one more pointer, the int32 n_valid
-        for fn, nptr in ((lib.celerite_fwd_aug_f32, 16), (lib.celerite_fwd_aug_f64, 16),
-                         (lib.celerite_fwd_aug_multi_f32, 17),
-                         (lib.celerite_fwd_aug_multi_f64, 17),
-                         (lib.celerite_bwd_f32, 23), (lib.celerite_bwd_f64, 23),
-                         (lib.celerite_bwd_multi_f32, 24), (lib.celerite_bwd_multi_f64, 24)):
-            fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # the per-lane entries take one more pointer, the int32 n_valid;
+        # K4's take ks and the chains per block after (B, J, N, kc)
+        for fn, nptr, nint in ((lib.celerite_fwd_aug_f32, 16, 4),
+                               (lib.celerite_fwd_aug_f64, 16, 4),
+                               (lib.celerite_fwd_aug_multi_f32, 17, 4),
+                               (lib.celerite_fwd_aug_multi_f64, 17, 4),
+                               (lib.celerite_bwd_f32, 22, 6), (lib.celerite_bwd_f64, 22, 6),
+                               (lib.celerite_bwd_multi_f32, 23, 6),
+                               (lib.celerite_bwd_multi_f64, 23, 6)):
+            fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.celerite_adjoint_error_string.argtypes = [ctypes.c_int]
         lib.celerite_adjoint_error_string.restype = ctypes.c_char_p
@@ -461,15 +500,16 @@ def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid):
         coefs = [x.zero_() for x in coefs]
         return (*coefs, rows[2].zero_() if per_lane else a.new_zeros(N),
                 rows[0].zero_(), rows[1].zero_())
-    scratch = new(B, kc, 4, J, J)
+    cpb, ks, _ = bwd_launch_shape(a.dtype, J, kc, B,
+                                  torch.cuda.get_device_properties(a.device).multi_processor_count)
     args = [x.contiguous() for x in (a, b, c, d, t)]
     args.append(None if dt is None else dt.contiguous())
     args += [g.contiguous()]
     args += [n_valid] if per_lane else []
-    args += [*(x.contiguous() for x in residuals), scratch, *coefs, *rows]
+    args += [*(x.contiguous() for x in residuals), *coefs, *rows]
     lib = _lib()
     fn = _entry(lib, "celerite_bwd", a.dtype, per_lane)
-    _call(fn, lib, "celerite_bwd", a.device, args, (B, J, N, kc))
+    _call(fn, lib, "celerite_bwd", a.device, args, (B, J, N, kc, ks, cpb))
     if per_lane:
         BWD_MULTI_LAUNCHES += 1
     else:

@@ -227,7 +227,32 @@ def test_scan_logl_and_direct_match_jax():
 
 
 def test_residual_bytes():
-    tables, ckpts, scratch = vjp.residual_bytes(512, 20, 485, kc=8)
+    """The device memory K3 writes and K4 reads: the per-step tables and
+    the T checkpoints (K4's own working set is in shared memory)."""
+    tables, ckpts = vjp.residual_bytes(512, 20, 485, kc=8)
     assert tables == 4 * 512 * 485 * 82
     assert ckpts == 4 * 512 * 61 * 3 * 400
-    assert scratch == 4 * 512 * 8 * 4 * 400
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kc", [1, 2, 3, 4, 8, 16, 489])
+def test_bwd_launch_shape_fits_shared_memory(dtype, kc):
+    """Every J the kernels take, at every batch: the block's shared memory
+    fits the H100's 232,448 bytes, with at least one chain a block and a
+    sub-chunk of 1 <= ks <= kc steps (at most 32: one lane keeps a step's
+    per-step cotangents)."""
+    for J in range(1, 33):
+        for batch in (1, 16, 37, 512, 1024, 4096):
+            cpb, ks, smem = vjp.bwd_launch_shape(dtype, J, kc, batch)
+            assert 1 <= cpb <= 4 and 1 <= ks <= min(kc, 32)
+            assert 0 < smem <= vjp.SMEM_BYTES and smem % cpb == 0
+            assert cpb <= -(-batch // vjp.H100_SMS)  # small batches spread over the SMs
+
+
+def test_bwd_launch_shape_choices():
+    """The flagship chunk fits whole with four chains a block (B = 512);
+    the NUTS batch (B = 16) takes one chain a block; float64 at J = 32
+    sweeps kc = 8 in sub-chunks of 6."""
+    assert vjp.bwd_launch_shape(torch.float32, 20, 8, 512) == (4, 8, 4 * 55456)
+    assert vjp.bwd_launch_shape(torch.float32, 20, 8, 16)[:2] == (1, 8)
+    assert vjp.bwd_launch_shape(torch.float64, 32, 8, 512)[:2] == (1, 6)

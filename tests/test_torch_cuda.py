@@ -276,6 +276,79 @@ def test_per_lane_adjoint_kernels_match_plain_on_card(card, dtype, J, with_dt):
         assert _rel_rows(x, r) <= bound, i
 
 
+def _adjoint_vs_plain(card, dtype, np_args, DT, kc, nv=None):
+    """K3 and K4 (one launch each) against their plain versions on the
+    same inputs, with the tolerances above; returns K4's launch shape."""
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+
+    B = np_args[0].shape[0]
+    args64 = [torch.as_tensor(x, dtype=torch.float64, device=card) for x in np_args]
+    args = [x.to(dtype) for x in args64]
+    dt = None if DT is None else torch.as_tensor(DT, device=card)
+    kw = dict(dt=dt, kc=kc)
+    if nv is not None:
+        kw["n_valid"] = torch.as_tensor(nv, device=card)
+    counts = lambda: (vjp.FWD_AUG_LAUNCHES + vjp.FWD_AUG_MULTI_LAUNCHES,  # noqa: E731
+                      vjp.BWD_LAUNCHES + vjp.BWD_MULTI_LAUNCHES)
+    n3, n4 = counts()
+    ll, res = vjp.fwd_aug(*args, **kw)
+    g = torch.where(torch.isfinite(ll), torch.linspace(0.5, 1.5, B, dtype=dtype, device=card), 0.0)
+    grads = vjp.bwd(*args, res, g, **kw)
+    torch.cuda.synchronize()
+    assert counts() == (n3 + 1, n4 + 1)
+    ll_p, res_p = vjp.fwd_aug_plain(*args64, **kw)
+    grads_p = vjp.bwd_plain(*args64, res_p, g.double(), **kw)
+    assert torch.equal(torch.isneginf(ll), torch.isneginf(ll_p))
+    if nv is not None:
+        live = torch.arange(args[4].shape[1], device=card)[None, :] < kw["n_valid"][:, None]
+        for x in grads[4:]:
+            assert bool((x[~live] == 0).all())
+    fin = torch.isfinite(ll_p)
+    assert bool(fin.any())
+    ours = _adjoint_rows(fin, ll, res, grads)
+    refs = _adjoint_rows(fin, ll_p, res_p, grads_p)
+    if dtype == torch.float64:
+        bounds = [1e-9] * len(refs)
+    else:
+        ll_q, res_q = vjp.fwd_aug_plain(*args, **kw)
+        own = _adjoint_rows(fin, ll_q, res_q, vjp.bwd_plain(*args, res_q, g, **kw))
+        bounds = [max(4.0 * _rel_rows(q, r), 1e-5) for q, r in zip(own, refs)]
+    for i, (x, r, bound) in enumerate(zip(ours, refs, bounds)):
+        assert _rel_rows(x, r) <= bound, i
+    return vjp.bwd_launch_shape(dtype, args[0].shape[1], kc, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("J", [3, 20, 32])
+@pytest.mark.parametrize("kc", [1, 3, 8, 103])
+@pytest.mark.parametrize("batch", [1, 37])
+def test_adjoint_kernels_across_chunk_lengths_on_card(card, dtype, J, kc, batch):
+    """Shared grid, N = 100: checkpoints every step, every 3, every 8 and
+    once (kc = N + 3, swept in sub-chunks of at most 32 steps with the T
+    recursion replayed from the checkpoint); one chain, or 37 with a
+    non-PD lane (not a multiple of the chains per block). float64 at
+    J = 32 sweeps kc = 8 in sub-chunks shorter than the chunk."""
+    np_args = _problem(37, J, 100, seed=J + kc)
+    if batch == 1:
+        np_args = tuple(x[1:2] if x.ndim == 2 else x for x in np_args)
+    cpb, ks, _ = _adjoint_vs_plain(card, dtype, np_args, None, kc)
+    if dtype == torch.float64 and J == 32 and kc == 8:
+        assert ks < kc
+    assert cpb >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("J", [3, 20, 32])
+@pytest.mark.parametrize("kc", [1, 3, 8, 103])
+def test_per_lane_adjoint_kernels_across_chunk_lengths_on_card(card, dtype, J, kc):
+    """Per-lane ragged grids (37 chains, ragged n_valid, host spacings) at
+    the same chunk lengths; cotangents exactly zero past n_valid."""
+    args, DT, nv = _ragged(37, J, 100, seed=J + kc)
+    _adjoint_vs_plain(card, dtype, args, DT, kc, nv)
+
+
 @pytest.mark.cuda
 def test_multi_backward_on_card_runs_the_kernels_only(card, monkeypatch):
     """Value and gradient of a ragged CUDA batch go through the per-lane K3
