@@ -68,7 +68,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # _kernel, launched at :232 by batched_loglike_pallas
     "celerite_tables": (TABLES_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
 }
-PHASE2_BATCHES = (128, 4096, 1000)  # NS sweep, final sweep, ragged edge
+PHASE2_BATCHES = (128, 4096, 1000, 1024)  # NS sweep, final sweep, ragged edge, SMC sweep
+PHASE2_TIMED = (128, 1024, 4096)
 ADJ_BATCHES = (512, 8, 1000)        # ChEES batch, small, ragged edge
 NS_LIVE = 1024
 CHEES = dict(num_chains=512, num_warmup=500, num_samples=2400, hmc_max_leapfrogs=128)
@@ -81,9 +82,10 @@ TABLES_BATCHES = (128, 4096, 1000)  # K0: NS sweep width, final sweep, ragged ed
 TABLES_SWEEPS = 10                  # flagship sweeps through batched_loglike_tables
 SMC_LOGZ_TOL = 1.0                  # examples/tpu_parity.py's logz_tol for "single"
 SMC = dict(num_particles=1024, num_moves=12)  # the committed parity run's settings
-# 16 chains, the JAX default; about 2.3 s an iteration on the card, so
-# 80 iterations keep the whole script near 800 s on a slow card host
-NUTS_FLAGSHIP = dict(num_chains=16, num_warmup=50, num_samples=30)
+# 16 chains, the JAX default. Its leaves are host-bound: at 80 iterations
+# (67,837 leaves) the whole script took 1129 s of its 1200 s limit on the
+# slowest card host seen; 50 iterations take 45,760 leaves
+NUTS_FLAGSHIP = dict(num_chains=16, num_warmup=30, num_samples=20)
 # the H100 SXM's published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
@@ -298,15 +300,18 @@ def phase_kernel_vs_plain(spec64, spec32):
                     mx = float(err.max())
                     check(mx <= 0.05, f"f32 B={B}: abs err {mx:.3e} > 0.05 nats")
                     worst[dtype] = max(worst[dtype], mx)
-            if B in PHASE2_BATCHES[:2]:
+            if B in PHASE2_TIMED:
                 run_k = lambda: batched_loglike(a, b, c, d, t, y, s2, dt64)  # noqa: E731
                 run_p = lambda: batched_loglike_plain(a, b, c, d, t, y, s2, dt64)  # noqa: E731
                 times[(str(dtype)[6:], B)] = (cuda_ms(run_k, 20), cuda_ms(run_p, 2))
     b_ns = PHASE2_BATCHES[0]
-    tstr = " ".join(f"{k[0]}/B={k[1]}: kernel_ms={v[0]:.4f} plain_ms={v[1]:.2f}"
+    N = len(spec64.t)
+    tstr = " ".join(f"{k[0]}/B={k[1]}: kernel_ms={v[0]:.4f} us_per_step={v[0] * 1e3 / N:.3f} "
+                    f"plain_ms={v[1]:.2f}"
                     + (f" bound_ms={bound(*k1_cost(k[1]))[0]:.5f}" if k[0] == "float32" else "")
                     for k, v in times.items())
-    print(f"phase 2 kernel vs plain: ok N=485 J=20 B=128,4096,1000 with/without dt "
+    print(f"phase 2 kernel vs plain: ok N={N} J=20 B={','.join(map(str, PHASE2_BATCHES))} "
+          f"with/without dt "
           f"f64_max_rel_err={worst[torch.float64]:.3e} "
           f"f32_max_abs_err={worst[torch.float32]:.3e} | {tstr}")
     return worst[torch.float32], times[("float32", b_ns)]
@@ -718,7 +723,8 @@ def phase_multi_vs_plain(spec64, spec32, datasets):
         check(rel <= (1e-12 if dtype == torch.float64 else 1e-6),
               f"K2 on one grid vs K1 ({dtype}): rel {rel:.3e}")
     tstr = " ".join(
-        f"{k[0]}/B={k[1]}: K2_ms={v[0]:.4f}" + (f" plain_ms={v[1]:.2f}" if v[1] else "")
+        f"{k[0]}/B={k[1]}: K2_ms={v[0]:.4f} us_per_step={v[0] * 1e3 / T.shape[1]:.3f}"
+        + (f" plain_ms={v[1]:.2f}" if v[1] else "")
         + (f" bound_ms={bound(*multi_costs(k[1], 20, 485, 8, 4, v[2], v[2] > 0)[0])[0]:.5f}"
            if k[0] == "float32" else "")
         for k, v in times.items())

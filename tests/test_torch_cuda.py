@@ -42,11 +42,12 @@ def _problem(B, J, N, seed):
 # f64: the two differ only in the order of their sums; f32: as chip_smoke.py
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
-@pytest.mark.parametrize("J", [3, 20, 32])
+@pytest.mark.parametrize("J", [1, 3, 4, 5, 20, 21, 32])
 @pytest.mark.parametrize("with_dt", [False, True])
 def test_kernel_matches_plain_on_card(card, dtype, tol, J, with_dt):
-    """A ragged batch edge (37 chains), J across the kernel's three widths,
-    a non-PD lane, with and without host spacings."""
+    """A ragged batch edge (37 chains), J on both sides of the kernel's
+    rounding of J up to 4 and at its ends, a non-PD lane, with and without
+    host spacings."""
     a, b, c, d, t, y, s2 = _problem(37, J, 300, seed=J)
     args = [torch.as_tensor(x, dtype=dtype, device=card) for x in (a, b, c, d, t, y, s2)]
     dt = torch.as_tensor(np.diff(t), device=card) if with_dt else None
@@ -57,10 +58,31 @@ def test_kernel_matches_plain_on_card(card, dtype, tol, J, with_dt):
     torch.cuda.synchronize()
     assert torch.equal(torch.isneginf(k), torch.isneginf(p)) and bool(k[0] == -math.inf)
     fin = torch.isfinite(p)
-    assert int(fin.sum()) == 36
+    # lane 0 is -inf; at J = 1 two more chains draw a single term with
+    # b d > a c, not a positive-definite kernel, and are -inf in both
+    assert int(fin.sum()) == (36 if J > 1 else 34)
     err = (k[fin] - p[fin]).abs()
     if dtype == torch.float64:
         err = err / p[fin].abs()
+    assert float(err.max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
+@pytest.mark.parametrize("J", [1, 20])
+def test_kernel_single_chain_on_card(card, dtype, tol, J):
+    """B = 1: one warp in one block, and a series that is not a whole
+    number of the kernel's 32-step blocks (N = 70)."""
+    a, b, c, d, t, y, s2 = _problem(2, J, 70, seed=J + 40)
+    args = [torch.as_tensor(x[1:] if x.ndim == 2 else x, dtype=dtype, device=card)
+            for x in (a, b, c, d, t, y, s2)]
+    k = batched_loglike(*args)
+    p = batched_loglike_plain(*args)
+    torch.cuda.synchronize()
+    assert k.shape == (1,) and bool(torch.isfinite(k).all()) and bool(torch.isfinite(p).all())
+    err = (k - p).abs()
+    if dtype == torch.float64:
+        err = err / p.abs()
     assert float(err.max()) <= tol
 
 
@@ -196,7 +218,7 @@ def _ragged(B, J, N, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
-@pytest.mark.parametrize("J", [3, 20, 32])
+@pytest.mark.parametrize("J", [1, 3, 4, 5, 20, 21, 32])
 @pytest.mark.parametrize("with_dt", [False, True])
 def test_multi_kernel_matches_plain_on_card(card, dtype, tol, J, with_dt):
     """K2 on a ragged batch edge (37 chains) against its plain version."""
@@ -211,11 +233,42 @@ def test_multi_kernel_matches_plain_on_card(card, dtype, tol, J, with_dt):
     torch.cuda.synchronize()
     assert torch.equal(torch.isneginf(k), torch.isneginf(p)) and bool(k[0] == -math.inf)
     fin = torch.isfinite(p)
-    assert int(fin.sum()) == 36
+    # lane 0 is -inf; at J = 1 two more chains draw a single term with
+    # b d > a c, not a positive-definite kernel, and are -inf in both
+    assert int(fin.sum()) == (36 if J > 1 else 34)
     err = (k[fin] - p[fin]).abs()
     if dtype == torch.float64:
         err = err / p[fin].abs()
     assert float(err.max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
+def test_multi_kernel_short_series_on_card(card, dtype, tol):
+    """K2 with n_valid 0 (the value is 0: no step counts), 1 and 2 beside
+    full and ragged lanes, against its plain version."""
+    args, _, nv = _ragged(6, 20, 45, seed=11)
+    args = list(args)
+    nv[2:] = [0, 1, 2, 33]
+    T = args[4]
+    for i, m in enumerate(nv):
+        T[i, max(m, 1):] = T[i, max(m, 1) - 1]
+    live = np.arange(45)[None, :] < nv[:, None]
+    args[6] = np.where(live, args[6], 1.0)
+    targs = [torch.as_tensor(x, dtype=dtype, device=card) for x in args]
+    tnv = torch.as_tensor(nv, device=card)
+    for dt in (None, torch.as_tensor(np.diff(T, axis=1), device=card)):
+        k = cuda_celerite.batched_loglike_multi(*targs, tnv, dt)
+        p = cuda_celerite.batched_loglike_multi_plain(*targs, tnv, dt)
+        torch.cuda.synchronize()
+        assert bool(k[0] == -math.inf) and bool(p[0] == -math.inf)
+        assert float(k[2]) == 0.0 and float(p[2]) == 0.0
+        fin = torch.isfinite(p)
+        assert int(fin.sum()) == 5 and bool(torch.isfinite(k[fin]).all())
+        err = (k[fin] - p[fin]).abs()
+        if dtype == torch.float64:
+            err = err / p[fin].abs().clamp_min(1e-300)
+        assert float(err.max()) <= tol
 
 
 @pytest.mark.cuda
