@@ -78,7 +78,8 @@ ADJ_MULTI_BATCHES = (1024, 7)      # the run_inference_many batch, ragged edge
 MANY_D = 16                         # datasets of the multi-dataset run
 MANY = dict(num_chains=64, num_warmup=500, num_samples=500, max_leapfrogs=128)  # JAX defaults
 PATH_A_SWEEPS = 10                  # no-gradient K2 sweeps over the run's batch
-TABLES_BATCHES = (128, 4096, 1000)  # K0: NS sweep width, final sweep, ragged edge
+TABLES_BATCHES = (128, 4096, 1000, 1024)  # K0: NS sweep, final sweep, ragged edge, SMC sweep
+TABLES_TIMED = (128, 1024, 4096)
 TABLES_SWEEPS = 10                  # flagship sweeps through batched_loglike_tables
 SMC_LOGZ_TOL = 1.0                  # examples/tpu_parity.py's logz_tol for "single"
 SMC = dict(num_particles=1024, num_moves=12)  # the committed parity run's settings
@@ -965,12 +966,14 @@ def tables_cost(B: int, J: int = 20, N: int = 485, item: int = 4):
 
 def phase_tables(spec64, spec32):
     """K0 against its plain version and against K1, its times beside its
-    bound, and the entry point batched_loglike_tables driven alone."""
+    bound with its launch shape, and the entry point
+    batched_loglike_tables driven alone."""
+    from pioran_tpu_torch import _build
     from pioran_tpu_torch.ops import cuda_celerite
     from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
     from pioran_tpu_torch.ops.cuda_celerite import (
         batched_loglike, batched_loglike_tables, build_tables, loglike_from_tables,
-        loglike_from_tables_plain)
+        loglike_from_tables_plain, tables_launch_shape)
 
     dev = spec64.device
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1008,7 +1011,7 @@ def phase_tables(spec64, spec32):
                 mx = float(err.max())
                 check(mx <= 0.05, f"K0 f32 B={B}: abs err {mx:.3e} > 0.05 nats")
                 worst[dtype] = max(worst[dtype], mx)
-            if B in TABLES_BATCHES[:2]:
+            if B in TABLES_TIMED:
                 times[(str(dtype)[6:], B)] = (
                     cuda_ms(lambda: loglike_from_tables(U, V, phi, y, s2, suma), 20),  # noqa: B023
                     cuda_ms(lambda: batched_loglike_tables(a, b, c, d, t, y, s2), 20),  # noqa: B023
@@ -1016,16 +1019,26 @@ def phase_tables(spec64, spec32):
                     cuda_ms(lambda: batched_loglike(a, b, c, d, t, y, s2), 20),  # noqa: B023
                     cuda_ms(lambda: loglike_from_tables_plain(U, V, phi, y, s2, suma), 1))  # noqa: B023
             del U, V, phi
-    tstr = " ".join(
-        f"{k[0]}/B={k[1]}: K0_ms={v[0]:.4f} entry_ms={v[1]:.4f} build_tables_ms={v[2]:.4f} "
-        f"K1_ms={v[3]:.4f} plain_ms={v[4]:.2f}"
-        + (f" bound_ms={bound(*tables_cost(k[1]))[0]:.5f} ({bound(*tables_cost(k[1]))[1]})"
-           if k[0] == "float32" else "")
-        for k, v in times.items())
+
+    def time_line(name, B, v):
+        item = 4 if name == "float32" else 8
+        nbytes = tables_cost(B, item=item)[0]
+        sh = tables_launch_shape(B, 20, getattr(torch, name))
+        return (f"{name}/B={B}: K0_ms={v[0]:.4f} entry_ms={v[1]:.4f} "
+                f"build_tables_ms={v[2]:.4f} K1_ms={v[3]:.4f} plain_ms={v[4]:.2f} "
+                f"achieved={nbytes / v[0] * 1e-9:.4f} TB/s "
+                f"({nbytes / v[0] * 1e3 / HBM_BYTES_S:.2%} of 3.35) "
+                f"shape chains={sh['chains']} steps={sh['steps']} smem={sh['smem']} "
+                f"blocks_per_sm={sh['blocks_per_sm']}"
+                + (f" bound_ms={bound(*tables_cost(B))[0]:.5f} ({bound(*tables_cost(B))[1]})"
+                   if name == "float32" else ""))
+    tstr = " ".join(time_line(k[0], k[1], v) for k, v in times.items())
+    ptx = [x for x in ptxas_summary(_build.build_info("celerite_tables")[1]).split("; ")
+           if ",20," in x]
     print(f"phase 13 K0 vs plain: ok N={len(spec64.t)} J=20 B={TABLES_BATCHES} lane 0 non-PD "
           f"f64_max_rel_err={worst[torch.float64]:.3e} (gate 1e-9) "
           f"f32_max_abs_err={worst[torch.float32]:.3e} (gate 0.05); K0 vs K1 f64 rel "
-          f"{vs_k1:.3e} (gate 1e-9) | {tstr}")
+          f"{vs_k1:.3e} (gate 1e-9) | ptxas {ptx} | {tstr}")
 
     # the main path: flagship sweeps through the entry point, nothing else
     B = TABLES_BATCHES[1]

@@ -48,7 +48,8 @@ from .cuda_celerite_vjp import (
 
 __all__ = ["batched_loglike", "batched_loglike_plain", "batched_loglike_multi",
            "batched_loglike_multi_plain", "build_tables", "loglike_from_tables",
-           "loglike_from_tables_plain", "batched_loglike_tables", "MAX_TERMS"]
+           "loglike_from_tables_plain", "batched_loglike_tables", "tables_launch_shape",
+           "MAX_TERMS"]
 
 LAUNCHES = 0
 MULTI_LAUNCHES = 0
@@ -336,10 +337,29 @@ def _tables_lib() -> ctypes.CDLL:
         for fn in (lib.celerite_tables_f32, lib.celerite_tables_f64):
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for fn in (lib.celerite_tables_at_f32, lib.celerite_tables_at_f64):
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.celerite_tables_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.celerite_tables_shape.restype = ctypes.c_int
         lib.celerite_tables_error_string.argtypes = [ctypes.c_int]
         lib.celerite_tables_error_string.restype = ctypes.c_char_p
         _TABLES_LIB = lib
     return _TABLES_LIB
+
+
+def tables_launch_shape(B: int, J: int, dtype=torch.float32) -> dict:
+    """The launch shape K0 picks on the current card for B chains of J
+    terms: ``chains`` a block (one warp each), ``steps`` a staged chunk,
+    ``smem`` bytes of shared memory a block, ``blocks_per_sm`` resident
+    on one SM (the occupancy calculator) and the card's ``sms``."""
+    lib = _tables_lib()
+    res = (ctypes.c_int * 5)()
+    err = lib.celerite_tables_shape(B, J, torch.empty((), dtype=dtype).element_size(), res)
+    if err != 0:
+        raise RuntimeError("celerite_tables_shape failed: "
+                           + lib.celerite_tables_error_string(err).decode())
+    return dict(zip(("chains", "steps", "smem", "blocks_per_sm", "sms"), res))
 
 
 def _check_tables(U, V, phi, y, sigma2, suma):
@@ -365,8 +385,10 @@ def _check_tables(U, V, phi, y, sigma2, suma):
                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _launch_tables(U, V, phi, y, sigma2, suma):
-    """Run K0 on CUDA tensors; raise on what it does not take."""
+def _launch_tables(U, V, phi, y, sigma2, suma, shape=None):
+    """Run K0 on CUDA tensors; raise on what it does not take. ``shape``
+    = (chains a block, steps a chunk) overrides the shape K0 picks from B
+    (chains 1, 2 or 4; steps 4, 8, 16 or 32)."""
     global TABLES_LAUNCHES
     _check_tables(U, V, phi, y, sigma2, suma)
     N, R, B = U.shape
@@ -375,10 +397,14 @@ def _launch_tables(U, V, phi, y, sigma2, suma):
         return out
     args = [x.contiguous() for x in (U, V, phi, y, sigma2, suma)]
     lib = _tables_lib()
-    fn = lib.celerite_tables_f32 if U.dtype == torch.float32 else lib.celerite_tables_f64
+    f32 = U.dtype == torch.float32
+    if shape is None:
+        fn, extra = (lib.celerite_tables_f32 if f32 else lib.celerite_tables_f64), ()
+    else:
+        fn, extra = (lib.celerite_tables_at_f32 if f32 else lib.celerite_tables_at_f64), shape
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
-        err = fn(*[x.data_ptr() for x in args], out.data_ptr(), B, R // 2, N, stream)
+        err = fn(*[x.data_ptr() for x in args], out.data_ptr(), B, R // 2, N, *extra, stream)
     if err != 0:
         raise RuntimeError(
             "celerite_tables launch failed: "

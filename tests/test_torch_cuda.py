@@ -436,29 +436,135 @@ def test_multi_backward_on_card_runs_the_kernels_only(card, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-# f64: the kernel and the plain loop differ only in the order of their
-# sums; f32: as chip_smoke.py (0.05 nats, K1's gate)
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
-@pytest.mark.parametrize("J", [3, 20, 32])
-def test_tables_kernel_matches_plain_on_card(card, dtype, tol, J):
-    """K0 on tables from build_tables, a ragged batch edge (37 chains), J
-    across the kernel's widths, a non-PD lane; one launch per call."""
-    a, b, c, d, t, y, s2 = (torch.as_tensor(x, dtype=dtype, device=card)
-                            for x in _problem(37, J, 300, seed=J))
-    U, V, phi = cuda_celerite.build_tables(a, b, c, d, t)
-    before = cuda_celerite.TABLES_LAUNCHES
-    k = cuda_celerite.loglike_from_tables(U, V, phi, y, s2, a.sum(1))
-    assert cuda_celerite.TABLES_LAUNCHES == before + 1
-    p = cuda_celerite.loglike_from_tables_plain(U, V, phi, y, s2, a.sum(1))
-    torch.cuda.synchronize()
+def _tables_check(k, p, dtype, tol):
+    """K0 against the plain loop: the same -inf lanes (lane 0 among
+    them), the finite values within the gate."""
     assert torch.equal(torch.isneginf(k), torch.isneginf(p)) and bool(k[0] == -math.inf)
     fin = torch.isfinite(p)
-    assert int(fin.sum()) == 36
+    assert bool(torch.isfinite(k[fin]).all())
     err = (k[fin] - p[fin]).abs()
     if dtype == torch.float64:
         err = err / p[fin].abs()
     assert float(err.max()) <= tol
+    return int(fin.sum())
+
+
+def _tables_run(card, B, J, N, seed, dtype, tol, phi_rows=False, shape=None):
+    """K0 (one launch) and its plain version on the same tables: from
+    build_tables, or with phi drawn row by row (halves unequal, first row
+    not zero)."""
+    a, b, c, d, t, y, s2 = (torch.as_tensor(x, dtype=dtype, device=card)
+                            for x in _problem(B, J, N, seed))
+    U, V, phi = cuda_celerite.build_tables(a, b, c, d, t)
+    if phi_rows:
+        rng = np.random.default_rng(seed + 1)
+        phi = torch.as_tensor(rng.uniform(0.2, 1.0, tuple(U.shape)), dtype=dtype, device=card)
+        assert not torch.equal(phi[:, :J], phi[:, J:])
+    before = cuda_celerite.TABLES_LAUNCHES
+    if shape is None:
+        k = cuda_celerite.loglike_from_tables(U, V, phi, y, s2, a.sum(1))
+    else:
+        k = cuda_celerite._launch_tables(U, V, phi, y, s2, a.sum(1), shape=shape)
+    assert cuda_celerite.TABLES_LAUNCHES == before + 1
+    p = cuda_celerite.loglike_from_tables_plain(U, V, phi, y, s2, a.sum(1))
+    torch.cuda.synchronize()
+    return _tables_check(k, p, dtype, tol)
+
+
+# f64: the kernel and the plain loop differ only in the order of their
+# sums; f32: as chip_smoke.py (0.05 nats, K1's gate)
+TABLES_GATES = [(torch.float64, 1e-9), (torch.float32, 5e-2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TABLES_GATES)
+@pytest.mark.parametrize("J", [1, 3, 20, 21, 32])
+def test_tables_kernel_matches_plain_on_card(card, dtype, tol, J):
+    """K0 on tables from build_tables, a ragged batch edge (37 chains), J
+    on both sides of the kernel's rounding of J up to 4 and at its ends,
+    a non-PD lane; one launch per call."""
+    fin = _tables_run(card, 37, J, 300, J, dtype, tol)
+    # at J = 1 two more chains draw a single term with b d > a c, not a
+    # positive-definite kernel, and are -inf in both
+    assert fin == (36 if J > 1 else 34)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TABLES_GATES)
+@pytest.mark.parametrize("B", [1, 37, "sms", 4095])
+def test_tables_kernel_batch_widths_on_card(card, dtype, tol, B):
+    """One chain; a ragged edge; as many chains as SMs; 4095 chains
+    (several rounds over the SMs, a last block part empty, copies
+    narrower than 16 bytes since B is odd)."""
+    if B == "sms":
+        B = torch.cuda.get_device_properties(card).multi_processor_count
+    if B == 1:  # lane 0 of _problem is the non-PD one: take the second
+        a, b, c, d, t, y, s2 = (torch.as_tensor(x[1:2] if x.ndim == 2 else x, dtype=dtype,
+                                                device=card) for x in _problem(2, 20, 70, 41))
+        U, V, phi = cuda_celerite.build_tables(a, b, c, d, t)
+        k = cuda_celerite.loglike_from_tables(U, V, phi, y, s2, a.sum(1))
+        p = cuda_celerite.loglike_from_tables_plain(U, V, phi, y, s2, a.sum(1))
+        torch.cuda.synchronize()
+        err = float((k - p).abs()[0]) / (float(p.abs()[0]) if dtype == torch.float64 else 1.0)
+        assert bool(torch.isfinite(k).all()) and err <= tol
+        return
+    assert _tables_run(card, B, 20, 300, B, dtype, tol) == B - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TABLES_GATES)
+@pytest.mark.parametrize("J", [3, 20])
+@pytest.mark.parametrize("B", [37, 40])
+def test_tables_kernel_unequal_phi_on_card(card, dtype, tol, J, B):
+    """phi drawn row by row, its halves unequal and its first row not
+    zero: the kernel never assumes build_tables' [ec; ec]."""
+    assert _tables_run(card, B, J, 300, J + B, dtype, tol, phi_rows=True) == B - 1
+
+
+# every count of chains a block the host can pick, with chunks of 4, 8
+# and 16 steps (and 32 with one chain a block), where the four buffers fit
+# in a block's shared memory at J = 20
+TABLES_SHAPES = [(dtype, tol, chains, steps) for dtype, tol in TABLES_GATES
+                 for chains in (1, 2, 4) for steps in (4, 8, 16, 32)
+                 if (steps < 32 or chains == 1)
+                 and chains * steps * (2 if dtype == torch.float64 else 1) <= 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,chains,steps", TABLES_SHAPES)
+@pytest.mark.parametrize("B", [37, 40])
+def test_tables_kernel_each_shape_on_card(card, dtype, tol, chains, steps, B):
+    """Each launch shape on a ragged B (4-byte copies, idle warps) and on
+    B = 40 (16-byte copies where the chains a block allow), N = 70 (no
+    whole number of chunks), unequal phi halves."""
+    assert _tables_run(card, B, 20, 70, B + chains, dtype, tol, phi_rows=True,
+                       shape=(chains, steps)) == B - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tables_shape_the_host_picks_on_card(card, dtype):
+    """A count of chains a block from 1, 2, 4 and a chunk of 4 to 32
+    steps that keep at least one block resident; one round over the SMs
+    while B allows one warp a scheduler (4 x the SM count). A shape that
+    does not fit raises."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for B in (1, 128, sms, sms + 1, 1024, 4096):
+        sh = cuda_celerite.tables_launch_shape(B, 20, dtype)
+        assert sh["sms"] == sms and sh["blocks_per_sm"] >= 1 and sh["smem"] <= 232448
+        assert sh["chains"] in (1, 2, 4) and sh["steps"] in (4, 8, 16, 32)
+        blocks = -(-B // sh["chains"])
+        if B <= 4 * sms:
+            assert blocks <= sms * sh["blocks_per_sm"]
+    a, b, c, d, t, y, s2 = (torch.as_tensor(x, dtype=dtype, device=card)
+                            for x in _problem(8, 32, 40, 3))
+    U, V, phi = cuda_celerite.build_tables(a, b, c, d, t)
+    with pytest.raises(RuntimeError, match="celerite_tables launch failed"):
+        cuda_celerite._launch_tables(U, V, phi, y, s2, a.sum(1), shape=(8, 8))
+    with pytest.raises(RuntimeError, match="celerite_tables launch failed"):
+        cuda_celerite._launch_tables(U, V, phi, y, s2, a.sum(1), shape=(4, 32 * 1024))
+    with pytest.raises(RuntimeError, match="celerite_tables launch failed"):
+        cuda_celerite._launch_tables(U, V, phi, y, s2, a.sum(1), shape=(3, 8))
 
 
 @pytest.mark.cuda
@@ -487,5 +593,8 @@ def test_tables_wrapper_rejects_on_card(card, monkeypatch):
     cuda_celerite.loglike_from_tables(U, V, phi, y, s2, a.sum(1))
     with pytest.raises(ValueError, match="sigma2"):
         cuda_celerite.loglike_from_tables(U, V, phi, y, s2.float(), a.sum(1))
+    wide = torch.zeros(20, 66, 4, dtype=U.dtype, device=card)
+    with pytest.raises(ValueError, match="at most 32"):
+        cuda_celerite.loglike_from_tables(wide, wide, wide, y, s2, a.sum(1))
     with pytest.raises(ValueError, match="no gradient"):
         cuda_celerite.batched_loglike_tables(a.requires_grad_(True), b, c, d, t, y, s2)
