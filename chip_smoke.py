@@ -16,7 +16,7 @@ the flagship single-bending model (J = 20): on the reference's 485-point
 light curve, nested sampling (``run_inference(sampler="ns")``, 1024 live
 points, gated against the reference's ultranest evidence) and ChEES-HMC
 seeded by ADVI with a dense metric (``run_inference(sampler="chees")``,
-512 chains, 500 + 2400 iterations, gated against the importance-sampling
+512 chains, 500 + 1800 iterations, gated against the importance-sampling
 referee and on split-r̂); then the multi-dataset path on 16 ragged light
 curves: a no-gradient sweep of ``batched_loglike_multi`` (K2) and
 ``run_inference_many`` (64 chains each from prior draws, 500 + 500
@@ -27,7 +27,15 @@ tempered SMC (``run_inference(sampler="smc")``, 1024 particles, 12 MALA
 moves, gated on the reference's evidence and the referee) and NUTS (on a
 correlated Gaussian on the card, with the analytic gates; and
 ``run_inference(sampler="nuts", init="advi")`` on the flagship, 16
-chains, checked for finite draws and its exact leapfrog count).
+chains, checked for finite draws and its exact leapfrog count). Then the
+other model builders: the double-bending and periodic-in-red-noise
+models (J = 20, on their committed 485-point light curves) and CARMA(2,1)
+and CARMA(3,2) (J = 1 and 2, on the flagship subset), each at its stored
+maximum-likelihood point, with K1 and K3/K4 against their plain versions
+on the model's own coefficients and its float64 gradient; and
+``run_inference(sampler="smc")`` on the double-bending, periodic and
+CARMA(2,1) models, gated as the JAX package's parity runs are (logZ,
+posterior pulls and widths).
 Between them it checks the flagship gradients and the N = 2^16 gradient.
 Each phase prints its lines; any failure exits non-zero before the result
 lines. The last two lines are the kernel table (JSON) and
@@ -72,7 +80,10 @@ PHASE2_BATCHES = (128, 4096, 1000, 1024)  # NS sweep, final sweep, ragged edge, 
 PHASE2_TIMED = (128, 1024, 4096)
 ADJ_BATCHES = (512, 8, 1000)        # ChEES batch, small, ragged edge
 NS_LIVE = 1024
-CHEES = dict(num_chains=512, num_warmup=500, num_samples=2400, hmc_max_leapfrogs=128)
+# 2400 samples until the builders' phases 17-18 joined the script; cut by
+# a quarter, with phase 15's depth halved, to keep the script inside its
+# time limit on the slowest card host
+CHEES = dict(num_chains=512, num_warmup=500, num_samples=1800, hmc_max_leapfrogs=128)
 MULTI_BATCHES = (1024, 4096, 1000)  # the run_inference_many batch, large, ragged edge
 ADJ_MULTI_BATCHES = (1024, 7)      # the run_inference_many batch, ragged edge
 MANY_D = 16                         # datasets of the multi-dataset run
@@ -87,6 +98,23 @@ SMC = dict(num_particles=1024, num_moves=12)  # the committed parity run's setti
 # (67,837 leaves) the whole script took 1129 s of its 1200 s limit on the
 # slowest card host seen; 50 iterations take 45,760 leaves
 NUTS_FLAGSHIP = dict(num_chains=16, num_warmup=30, num_samples=20)
+NUTS_GAUSSIAN = dict(num_warmup=150, num_samples=250)  # halved from 300 + 500 with CHEES
+# the other model builders: dataset, light curve, builder, its keywords,
+# stored order -> spec order of the stored ML point (None: no reference
+# run), J
+BUILDERS = {
+    "double": ("simu_double", "simu_double_subset_time_series.txt", "double_bending_model",
+               {}, [0, 2, 4, 1, 3, 5, 6, 7], 20),
+    "periodic": ("simu_periodic", "simu_periodic_rednoise_subset_time_series.txt",
+                 "periodic_rednoise_model", {}, [0, 2, 1, 3, 4, 5, 6, 7, 8], 20),
+    "carma21": ("simu_single", "simu_single_subset_time_series.txt", "carma_model",
+                {"p": 2, "q": 1}, None, 1),
+    "carma32": ("simu_single", "simu_single_subset_time_series.txt", "carma_model",
+                {"p": 3, "q": 2}, None, 2),
+}
+BUILDER_BATCHES = (1024, 1000)      # the SMC sweep, ragged edge
+SMC_BUILDERS = ("double", "periodic", "carma21")  # the JAX package's parity runs
+PARITY = os.path.join(HERE, "artifacts", "tpu_parity")
 # the H100 SXM's published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
@@ -115,9 +143,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def load_subset():
-    """The reference's 485-point light curve and its #mean: header."""
-    path = os.path.join(DATA, "simu_single", "simu_single_subset_time_series.txt")
+def load_curve(dirname, fname):
+    """A committed light curve (t, y, yerr columns) and its #mean: header."""
+    path = os.path.join(DATA, dirname, fname)
     xbar = va = None
     with open(path) as fh:
         for line in fh:
@@ -126,6 +154,11 @@ def load_subset():
                 xbar, va = float(left), float(right)
                 break
     return np.loadtxt(path), xbar, va
+
+
+def load_subset():
+    """The reference's 485-point light curve and its #mean: header."""
+    return load_curve("simu_single", "simu_single_subset_time_series.txt")
 
 
 def k1_cost(B: int, J: int = 20, N: int = 485, item: int = 4):
@@ -1141,7 +1174,7 @@ def phase_nuts_gaussian(dev):
     t0 = time.perf_counter()
     samples, stats = run_nuts(lambda Z: -0.5 * torch.sum((Z @ prec) * Z, dim=1), z0,
                               torch.Generator(device=dev).manual_seed(0),
-                              num_warmup=300, num_samples=500)
+                              **NUTS_GAUSSIAN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(samples.is_cuda, "NUTS draws are not on the card")
@@ -1150,7 +1183,8 @@ def phase_nuts_gaussian(dev):
     mean_err = float(np.abs(s.mean(0)).max())
     cov_err = float(np.abs(np.cov(s.T) - cov).max())
     leaves = int(stats["num_leaves"].sum() + stats["warmup_num_leaves"].sum())
-    print(f"phase 15 NUTS correlated Gaussian (card): chains=8 warmup=300 samples=500 "
+    print(f"phase 15 NUTS correlated Gaussian (card): chains=8 "
+          f"warmup={NUTS_GAUSSIAN['num_warmup']} samples={NUTS_GAUSSIAN['num_samples']} "
           f"wall_s={wall:.2f} leaves={leaves} mean_depth={float(stats['depth'].double().mean()):.3f} "
           f"divergent={div:.4f} max_mean_err={mean_err:.4f} (gate 0.12) "
           f"max_cov_err={cov_err:.4f} (gate 0.25) step_sizes="
@@ -1223,6 +1257,364 @@ def phase_nuts_flagship(dev, out_dir):
     return launches
 
 
+def builder_spec(name, dev, dtype):
+    """The port's spec of one of BUILDERS on its light curve."""
+    import pioran_tpu_torch.inference as tinf
+
+    dirname, fname, builder, kw = BUILDERS[name][:4]
+    A, xbar, va = load_curve(dirname, fname)
+    return getattr(tinf, builder)(A[:, 0], A[:, 1], A[:, 2], xbar, va, device=dev,
+                                  dtype=dtype, **kw)
+
+
+def stored_point(name):
+    """(theta in spec order, logl, tolerance) of the model's stored
+    maximum-likelihood point, or None: the reference's ultranest run for
+    the power-law models (float64, 1e-6), the committed CARMA(2,1) NS run
+    for CARMA (a float32 run: 0.3, the bound of
+    tests/test_tpu_artifacts.py)."""
+    perm = BUILDERS[name][4]
+    if perm is not None:
+        with open(os.path.join(DATA, BUILDERS[name][0], "results.json")) as fh:
+            ml = json.load(fh)["maximum_likelihood"]
+        return [ml["point"][i] for i in perm], ml["logl"], 1e-6
+    if name == "carma21":
+        with open(os.path.join(PARITY, "summary.json")) as fh:
+            entry = json.load(fh)["runs"]["carma_ns"]
+        return entry["ml_point"], entry["ml_logl"], 0.3
+    return None
+
+
+def model_inputs(spec, TH):
+    """The (a, b, c, d, y, sigma2) that ``spec.loglike_batch(TH)`` hands
+    the kernels, as the model makes them (the model's closure looks
+    ``batched_loglike`` up at each call)."""
+    import pioran_tpu_torch.inference as tinf
+
+    seen = []
+
+    def grab(a, b, c, d, t, y, sigma2, dt=None):
+        seen.append((a, b, c, d, y, sigma2))
+        return a.new_zeros(a.shape[0])
+
+    kernel_loglike = tinf.batched_loglike
+    tinf.batched_loglike = grab
+    try:
+        with torch.no_grad():
+            spec.loglike_batch(TH)
+    finally:
+        tinf.batched_loglike = kernel_loglike
+    return seen[0]
+
+
+def f32_spread(tag, name, e_k, e_q):
+    """The float32 gate on prior draws: at the median and the 90th
+    percentile of the rows, the kernel's error within 3x the plain
+    loop's own (or 1e-7). Prior draws include covariances so ill
+    conditioned that float32 keeps no digit in either order, so the
+    largest errors are reported, not gated. Returns the three ratios
+    (median, 90th percentile, largest)."""
+    qs = torch.tensor([0.5, 0.9], dtype=torch.float64, device=e_k.device)
+    k50, k90 = torch.quantile(e_k.double(), qs).tolist()
+    q50, q90 = torch.quantile(e_q.double(), qs).tolist()
+    check(k50 <= max(3.0 * q50, 1e-7) and k90 <= max(3.0 * q90, 1e-7),
+          f"{tag} {name} f32: kernel rel err median/90% {k50:.3e}/{k90:.3e} > 3 x the f32 "
+          f"plain loop's {q50:.3e}/{q90:.3e}")
+    return k50 / max(q50, 1e-12), k90 / max(q90, 1e-12), float(e_k.max() / e_q.max().clamp_min(1e-12))
+
+
+def ll_err(x, ref):
+    """Per-chain error of log-likelihoods, relative to max(|ll|, 1 nat):
+    prior draws reach log-likelihoods near 0."""
+    ref = ref.double()
+    return (x.double() - ref).abs() / ref.abs().clamp_min(1.0)
+
+
+def chain_err(x, ref):
+    """Per-chain 2-norm relative error of (B, ...) tables."""
+    x, ref = x.double().reshape(x.shape[0], -1), ref.double().reshape(ref.shape[0], -1)
+    return (x - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-300)
+
+
+def f64_bound(e_q32) -> float:
+    """The float64 gate on prior draws: 1e-9, or where the plain loop's
+    own float32 error shows an ill-conditioned draw, 3x the float64
+    rounding that conditioning predicts: e_q32 x 2^-53 / 2^-24."""
+    return max(1e-9, 3.0 * 2.0**-29 * e_q32)
+
+
+def same_neginf(tag, k, p, blind=None):
+    """The kernel's -inf lanes (not positive definite) are the plain
+    version's, and lane 0 (forced) is one of them; in float32 a lane may
+    differ only where ``blind`` marks the draw ill-conditioned. Returns
+    the number of lanes that differ."""
+    differ = torch.isneginf(k) != torch.isneginf(p)
+    allowed = torch.zeros_like(differ) if blind is None else blind
+    check(not bool((differ & ~allowed).any()) and bool(torch.isneginf(k[0])),
+          f"{tag}: -inf lanes differ: kernel {int(torch.isneginf(k).sum())}, plain "
+          f"{int(torch.isneginf(p).sum())}, {int((differ & ~allowed).sum())} of them on "
+          f"well-conditioned draws")
+    return int(differ.sum())
+
+
+def f32_blind(p32, p64):
+    """Lanes where float32 keeps no digit of the answer: finite in
+    float64, and the f32 plain loop -inf or more than 1e-3 off (relative
+    to max(|ll|, 1 nat))."""
+    off = ll_err(torch.where(torch.isfinite(p32), p32, 0.0), torch.where(torch.isfinite(p64), p64, 0.0))
+    return torch.isfinite(p64) & (torch.isneginf(p32) | (off > 1e-3))
+
+
+def hold_k1(args64, dt, tag):
+    """K1 against its plain version on one batch of prior draws: the
+    largest f64 error, per row relative to max(|ll|, 1 nat), within
+    :func:`f64_bound` of the plain loop's largest f32 error; f32 by
+    :func:`f32_spread`; -inf on the plain version's lanes (float32: see
+    :func:`same_neginf`). Returns (f64 err, its bound, f32 ratios, f32 max
+    abs err against the f32 plain loop, f32 lanes whose -inf differs)."""
+    from pioran_tpu_torch.ops.cuda_celerite import batched_loglike, batched_loglike_plain
+
+    args32 = tuple(x.float() for x in args64)
+    k64, p64 = batched_loglike(*args64, dt), batched_loglike_plain(*args64, dt)
+    k32, p32 = batched_loglike(*args32, dt), batched_loglike_plain(*args32, dt)
+    torch.cuda.synchronize()
+    same_neginf(f"{tag} K1 f64", k64, p64)
+    n_differ = same_neginf(f"{tag} K1 f32", k32, p32, f32_blind(p32, p64))
+    fin = torch.isfinite(p64) & torch.isfinite(p32) & torch.isfinite(k32)
+    check(int(fin.sum()) > 0.5 * fin.numel(), f"{tag}: only {int(fin.sum())} finite lanes")
+    e_q = ll_err(p32[fin], p64[fin])
+    e64, b64 = float(ll_err(k64[fin], p64[fin]).max()), f64_bound(float(e_q.max()))
+    check(e64 <= b64, f"{tag} K1 f64: rel err {e64:.3e} > {b64:.3e}")
+    ratios = f32_spread(tag, "K1", ll_err(k32[fin], p64[fin]), e_q)
+    return e64, b64, ratios, float((k32[fin] - p32[fin]).abs().max()), n_differ
+
+
+def hold_k3k4(args64, dt, tag):
+    """K3/K4 against their plain versions on one batch of prior draws,
+    per chain (ll as in :func:`hold_k1`, tables and cotangents 2-norm
+    relative), on the chains finite in every version: each output's
+    largest f64 error within :func:`f64_bound` of the plain loop's
+    largest f32 error on it; f32 by :func:`f32_spread`; -inf lanes as in
+    :func:`hold_k1`; the non-PD lane's gradient zero. t's cotangent sums
+    every chain, so it carries the worst-conditioned draws' float32
+    error: its f32 error is reported, not gated (no model takes a time
+    gradient; phase 6 gates it near the posterior). Returns (the f64
+    error nearest its bound, that bound, the worst f32 ratios, {K3, K4:
+    max abs err against the f32 plain loop}, t's f32 kernel/plain error
+    ratio, f32 lanes whose -inf differs, the output nearest its bound)."""
+    from pioran_tpu_torch.ops.cuda_celerite_vjp import bwd, bwd_plain, fwd_aug, fwd_aug_plain
+
+    B = args64[0].shape[0]
+    args32 = tuple(x.float() for x in args64)
+    ll_p, res_p = fwd_aug_plain(*args64, dt=dt)
+    ll_q, res_q = fwd_aug_plain(*args32, dt=dt)
+    out64, out32 = fwd_aug(*args64, dt=dt), fwd_aug(*args32, dt=dt)
+    torch.cuda.synchronize()
+    same_neginf(f"{tag} K3 f64", out64[0], ll_p)
+    n_differ = same_neginf(f"{tag} K3 f32", out32[0], ll_q, f32_blind(ll_q, ll_p))
+    fin = torch.isfinite(ll_p) & torch.isfinite(ll_q) & torch.isfinite(out32[0])
+    g = torch.where(fin, torch.linspace(0.5, 1.5, B, dtype=torch.float64, device=fin.device), 0.0)
+    refs = adjoint_rows(fin, ll_p, res_p, bwd_plain(*args64, res_p, g, dt=dt))
+    own = adjoint_rows(fin, ll_q, res_q, bwd_plain(*args32, res_q, g.float(), dt=dt))
+    err = lambda i, x, r: ll_err(x[:, 0], r[:, 0]) if i == 0 else chain_err(x, r)  # noqa: E731
+    bounds = [f64_bound(float(err(i, q, r).max())) for i, (q, r) in enumerate(zip(own, refs))]
+    rows = {}
+    for dtype, args, (ll, res) in ((torch.float64, args64, out64), (torch.float32, args32, out32)):
+        grads = bwd(*args, res, g.to(dtype), dt=dt)
+        torch.cuda.synchronize()
+        check(all(x.dim() == 1 or bool((x[0] == 0).all()) for x in grads),
+              f"{tag} K4 {dtype}: the non-PD lane's gradient is not zero")
+        rows[dtype] = adjoint_rows(fin, ll, res, grads)
+        check(all(bool(torch.isfinite(x).all()) for x in rows[dtype][8:]),
+              f"{tag} K4 {dtype}: non-finite cotangent")
+    errs = [float(err(i, x, r).max()) for i, (x, r) in enumerate(zip(rows[torch.float64], refs))]
+    for name, e, b in zip(ADJ_NAMES, errs, bounds):
+        check(e <= b, f"{tag} f64 {name}: rel err {e:.3e} > {b:.3e}")
+    worst = int(np.argmax(np.asarray(errs) / np.asarray(bounds)))
+    ratios, max_abs = [0.0, 0.0, 0.0], {"celerite_fwd_aug": 0.0, "celerite_bwd": 0.0}
+    t_bar = ADJ_NAMES.index("t_bar")
+    for i, (x, q, r) in enumerate(zip(rows[torch.float32], own, refs)):
+        key = "celerite_fwd_aug" if i < 8 else "celerite_bwd"
+        max_abs[key] = max(max_abs[key], float((x.double() - q.double()).abs().max()))
+        if i != t_bar:
+            ratios = [max(u, v) for u, v in
+                      zip(ratios, f32_spread(tag, ADJ_NAMES[i], err(i, x, r), err(i, q, r)))]
+    t_ratio = float(err(t_bar, rows[torch.float32][t_bar], refs[t_bar])
+                    / err(t_bar, own[t_bar], refs[t_bar]))
+    return errs[worst], bounds[worst], ratios, max_abs, t_ratio, n_differ, ADJ_NAMES[worst]
+
+
+def builder_grad(spec64, name):
+    """The f64 log-posterior gradient through K3/K4 against autograd
+    through the plain loop at 64 rows from the middle half of the prior
+    (phase 7's gate, 1e-8 relative per row). Returns (max rel err, the
+    periodic model's A, phi, T0 entries' own max rel err or None)."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+    from pioran_tpu_torch.ops.cuda_celerite import batched_loglike_plain
+    from pioran_tpu_torch.samplers.chees import batch_value_and_grad
+
+    dev, prior = spec64.device, spec64.prior
+    gen = torch.Generator(device=dev).manual_seed(18)
+    U = 0.25 + 0.5 * torch.rand((64, prior.dim), generator=gen, dtype=torch.float64, device=dev)
+    Z = prior.to_unconstrained(prior.transform(U))
+    n3, n4 = vjp.FWD_AUG_LAUNCHES, vjp.BWD_LAUNCHES
+    lp, g = batch_value_and_grad(spec64.logpost_batch, Z)
+    torch.cuda.synchronize()
+    check((vjp.FWD_AUG_LAUNCHES, vjp.BWD_LAUNCHES) == (n3 + 1, n4 + 1),
+          f"{name}: the gradient did not run K3 and K4 once each")
+    kernel_loglike = tinf.batched_loglike
+    tinf.batched_loglike = batched_loglike_plain
+    try:
+        lp_p, g_p = batch_value_and_grad(spec64.logpost_batch, Z)
+    finally:
+        tinf.batched_loglike = kernel_loglike
+    fin = torch.isfinite(lp_p)
+    check(int(fin.sum()) >= 60 and torch.equal(torch.isfinite(lp), fin),
+          f"{name}: finite rows differ or too few: {int(fin.sum())}")
+    rel = float(((g - g_p).norm(dim=1) / g_p.norm(dim=1))[fin].max())
+    check(rel <= 1e-8, f"{name} f64 gradient rel err {rel:.3e} > 1e-8")
+    if name != "periodic":
+        return rel, None
+    sub, sub_p = g[fin][:, 6:], g_p[fin][:, 6:]
+    check(bool((sub_p.abs() > 0).all()), "periodic: a zero A, phi or T0 gradient entry")
+    return rel, float(((sub - sub_p).norm(dim=1) / sub_p.norm(dim=1)).max())
+
+
+def phase_builders(dev):
+    """Phase 17: each other builder on the card at full width, f64 value
+    at its stored point, K1 and K3/K4 against their plain versions on its
+    own coefficients (prior draws), and its f64 gradient."""
+    for name in BUILDERS:
+        t0 = time.perf_counter()
+        spec64 = builder_spec(name, dev, torch.float64)
+        J = BUILDERS[name][5]
+        stored = stored_point(name)
+        value = "no stored point"
+        if stored is not None:
+            th, logl, tol = stored
+            ll = float(spec64.loglike(torch.tensor(th, dtype=torch.float64, device=dev)))
+            check(abs(ll - logl) <= tol, f"{name}: f64 logl {ll!r} at the stored point, "
+                  f"stored {logl!r} (gate {tol})")
+            value = f"f64 logl at the stored point {ll!r} (stored {logl!r}, gate {tol})"
+        t = torch.as_tensor(spec64.t, dtype=torch.float64, device=dev)
+        dt = torch.as_tensor(np.diff(spec64.t.astype(np.float64)), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        k1, k34 = [], []
+        for B in BUILDER_BATCHES:
+            TH = spec64.prior.sample((B,), generator=gen, dtype=torch.float64, device=dev)
+            a, b, c, d, y, s2 = model_inputs(spec64, TH)
+            check(tuple(a.shape) == (B, J) and tuple(y.shape) == (B, len(spec64.t)),
+                  f"{name}: coefficients {tuple(a.shape)}, y {tuple(y.shape)}")
+            a = a.clone()
+            a[0] = -50.0 * a[0]  # lane 0 not positive definite
+            args64 = (a, b, c, d, t, y, s2)
+            k1.append(hold_k1(args64, dt, f"{name} B={B}"))
+            k34.append(hold_k3k4(args64, dt, f"{name} B={B}"))
+        grad_rel, sub_rel = builder_grad(spec64, name)
+        r1 = [max(x[2][i] for x in k1) for i in range(3)]
+        r34 = [max(x[2][i] for x in k34) for i in range(3)]
+        w1, w34 = max(k1, key=lambda x: x[0] / x[1]), max(k34, key=lambda x: x[0] / x[1])
+        print(f"phase 17 {name}: ok J={J} N={len(spec64.t)} {value}; B={BUILDER_BATCHES} prior "
+              f"draws, lane 0 non-PD: f64 rel err (gate) K1 {w1[0]:.3e} ({w1[1]:.1e}), K3/K4 "
+              f"{w34[0]:.3e} ({w34[1]:.1e}) in {w34[6]}; f32 kernel/plain error ratios "
+              f"median/90%/max K1 {r1[0]:.2f}/{r1[1]:.2f}/{r1[2]:.2f}, K3/K4 worst output "
+              f"{r34[0]:.2f}/{r34[1]:.2f}/{r34[2]:.2f} (gate 3 at the median and 90%), t_bar "
+              f"{max(x[4] for x in k34):.2f} (reported); f32 -inf lanes that differ (ill-conditioned "
+              f"draws) K1 {sum(x[4] for x in k1)} K3 {sum(x[5] for x in k34)}; f32 max abs err "
+              f"against the f32 plain "
+              f"loop K1 {max(x[3] for x in k1):.3e} K3 "
+              f"{max(x[3]['celerite_fwd_aug'] for x in k34):.3e} K4 "
+              f"{max(x[3]['celerite_bwd'] for x in k34):.3e}; f64 gradient 64 rows max rel "
+              f"{grad_rel:.3e} (gate 1e-8)"
+              + (f", A/phi/T0 entries {sub_rel:.3e}" if sub_rel is not None else "")
+              + f"; wall_s={time.perf_counter() - t0:.1f}")
+
+
+def phase_builders_smc(dev, out_dir):
+    """Phase 18: run_inference(sampler="smc") on the double-bending,
+    periodic and CARMA(2,1) models with phase 14's settings, gated as the
+    JAX package's parity runs are."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops import cuda_celerite, cuda_celerite_vjp as vjp
+
+    total = {"celerite_fwd": 0, "celerite_fwd_aug": 0, "celerite_bwd": 0, "celerite_tables": 0}
+    walls = {}
+    for name in SMC_BUILDERS:
+        gate = smc_gate(name)
+        spec = builder_spec(name, dev, torch.float32)
+        log_dir = os.path.join(out_dir, f"smc_{name}")
+        cuda_celerite.LAUNCHES = cuda_celerite.TABLES_LAUNCHES = 0
+        vjp.FWD_AUG_LAUNCHES = vjp.BWD_LAUNCHES = 0
+        t_wall = time.perf_counter()
+        res = tinf.run_inference(spec, sampler="smc", log_dir=log_dir, **SMC)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_wall
+        launches = {"celerite_fwd": cuda_celerite.LAUNCHES,
+                    "celerite_fwd_aug": vjp.FWD_AUG_LAUNCHES,
+                    "celerite_bwd": vjp.BWD_LAUNCHES,
+                    "celerite_tables": cuda_celerite.TABLES_LAUNCHES}
+        steps = res["num_temper_steps"]
+        mean, sd = np.asarray(res["posterior"]["mean"]), np.asarray(res["posterior"]["stdev"])
+        ref_mean, ref_sd = gate["mean"], gate["sd"]
+        pulls = (mean - ref_mean) / (np.sqrt(ref_sd**2 + sd**2) if gate["combined"] else ref_sd)
+        width = sd / ref_sd
+        lo, hi = gate["widths"]
+        walls[name] = round(wall, 2)
+        print(f"phase 18 SMC {name}: particles={SMC['num_particles']} moves={SMC['num_moves']} "
+              f"(mala) logz={res['logz']:.4f} (gate {gate['logz']} +- {gate['logz_tol']}) "
+              f"temper_steps={steps} ncall={res['ncall']} elapsed_s={res['elapsed_s']:.2f} "
+              f"wall_s={wall:.2f} ms_per_temper_step={res['elapsed_s'] / max(steps, 1) * 1e3:.1f} "
+              f"launches={launches}")
+        print(f"phase 18 SMC {name} pulls vs {gate['against']}: {np.round(pulls, 4).tolist()} "
+              f"width ratios: {np.round(width, 4).tolist()} (gate [{lo}, {hi}])")
+        check(abs(res["logz"] - gate["logz"]) <= gate["logz_tol"],
+              f"{name} SMC logZ {res['logz']:.4f} outside {gate['logz']} +- {gate['logz_tol']}")
+        check(bool(np.all(np.abs(pulls) <= 0.5)), f"{name} SMC posterior pull > 0.5 sd: {pulls}")
+        check(bool(np.all((width >= lo) & (width <= hi))),
+              f"{name} SMC width ratio outside [{lo}, {hi}]: {width}")
+        check(res["ncall"] == steps * SMC["num_moves"] * SMC["num_particles"],
+              f"{name} SMC ncall formula")
+        check(launches["celerite_fwd"] >= steps * SMC["num_moves"],
+              f"{name}: K1 launches {launches['celerite_fwd']} < {steps * SMC['num_moves']} moves")
+        check(min(launches["celerite_fwd_aug"], launches["celerite_bwd"])
+              >= steps * (SMC["num_moves"] + 1), f"{name}: K3/K4 launches {launches} < gradients")
+        check(launches["celerite_tables"] == 0, f"{name}: the SMC run launched K0")
+        for rel in (("chains", "equal_weighted_post.txt"), ("info", "results.json")):
+            check(os.path.isfile(os.path.join(log_dir, *rel)), f"{name}: {rel} not written")
+        for key in total:
+            total[key] += launches[key]
+    print(f"phase 18 SMC on the builders: ok walls_s={walls}")
+    return total
+
+
+def smc_gate(name):
+    """Phase 18's gates for one model, from the committed records: the
+    JAX package's parity gates (examples/tpu_parity.py,
+    tests/test_tpu_artifacts.py). Power-law models: the reference's
+    ultranest logZ with the parity run's tolerance, pulls in the
+    importance-sampling referee's standard deviations, widths against its
+    in the JAX SMC run's recorded gate ([0.75, 1.33] where it recorded
+    none). CARMA(2,1): the committed NS run's logZ within 1.5, pulls in
+    the combined standard deviation of both runs (the cross-sampler gate)
+    and widths against that run's equal-weighted posterior."""
+    with open(os.path.join(PARITY, "summary.json")) as fh:
+        runs = json.load(fh)["runs"]
+    if name == "carma21":
+        theta = np.loadtxt(os.path.join(PARITY, "carma_ns", "chains",
+                                        "equal_weighted_post.txt"), skiprows=1)
+        return dict(logz=runs["carma_ns"]["logz"], logz_tol=1.5, mean=theta.mean(axis=0),
+                    sd=theta.std(axis=0), combined=True, widths=(0.75, 1.33),
+                    against="the committed CARMA(2,1) NS run")
+    entry = runs[f"{name}_smc"]
+    with open(os.path.join(DATA, BUILDERS[name][0], "is_referee.json")) as fh:
+        ref = json.load(fh)
+    return dict(logz=entry["logz_ref"], logz_tol=entry["logz_tol"],
+                mean=np.asarray(ref["is_mean"]), sd=np.asarray(ref["is_std"]), combined=False,
+                widths=tuple(entry.get("width_gate_referee", (0.75, 1.33))),
+                against="the referee")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
@@ -1266,18 +1658,21 @@ def main(argv=None) -> int:
     smc_launches = timed("14", phase_smc, dev, args.out)
     timed("15", phase_nuts_gaussian, dev)
     nuts_launches = timed("16", phase_nuts_flagship, dev, args.out)
+    timed("17", phase_builders, dev)
+    builder_launches = timed("18", phase_builders_smc, dev, args.out)
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t_start:.1f} s; "
           f"phase wall_s {walls}; "
           f"launches on the main paths: NS {{'celerite_fwd': {ns_launches}}}, "
           f"ChEES {chees_launches}, multi-dataset no-gradient sweeps "
           f"{{'celerite_fwd_multi': {k2_launches}}}, run_inference_many {many_launches}, "
           f"batched_loglike_tables {{'celerite_tables': {k0_launches}}}, SMC {smc_launches}, "
-          f"NUTS {nuts_launches}")
+          f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}")
 
     # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
-    # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS)
+    # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS,
+    # the other builders' SMC)
     t512 = timing[512]
-    paths = (chees_launches, smc_launches, nuts_launches)
+    paths = (chees_launches, smc_launches, nuts_launches, builder_launches)
     rows = {
         "celerite_fwd": (ns_launches + sum(p["celerite_fwd"] for p in paths), f32_err, k_ms,
                          p_ms, k1_cost(PHASE2_BATCHES[0])),

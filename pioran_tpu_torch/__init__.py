@@ -8,9 +8,12 @@ celerite kernel algebra, the PSD -> celerite approximation, the priors,
 the batched celerite log-likelihood and its gradient (hand-written CUDA
 kernels on the card, their plain PyTorch versions on the CPU), the
 table-streaming likelihood (``ops.cuda_celerite.batched_loglike_tables``),
-tempered SMC, nested sampling, NUTS, ChEES-HMC, ADVI and the flagship
-single-bending model with ``run_inference(sampler="smc" | "ns" | "nuts" |
-"chees" | "advi")``, and the multi-dataset axis: ``run_inference_many``
+tempered SMC, nested sampling, NUTS, ChEES-HMC, ADVI, CARMA(p, q) models
+(``models.carma``) and sinusoidal means (``models.gp.CustomMean``), the
+model builders of the JAX package (single- and double-bending power laws,
+a periodic signal in red noise, CARMA) with ``run_inference(sampler="smc"
+| "ns" | "nuts" | "chees" | "advi")``, and the multi-dataset axis:
+``run_inference_many``
 over ragged light curves on the ragged batched likelihood
 ``batched_loglike_multi``. Entry points run on the card unless given
 ``device="cpu"``.
@@ -37,6 +40,8 @@ from .models.kernels import (
     celerite_psd,
     celerite_covariance,
 )
+from .models.carma import CARMA, quad2roots, roots2coeffs
+from .models.gp import CustomMean
 from .ops.approx import approx, get_approx_coefficients
 from .priors import (
     TwoUniformDependent,
@@ -47,6 +52,9 @@ from .ops.cuda_celerite import batched_loglike, batched_loglike_multi
 from .inference import (
     advi_seeded_inits,
     single_bending_model,
+    double_bending_model,
+    periodic_rednoise_model,
+    carma_model,
     run_inference,
     run_inference_many,
 )

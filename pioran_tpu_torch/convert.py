@@ -2,8 +2,8 @@
 
 The port's tests feed the JAX package and this one the same inputs:
 the JAX side's prior sets, sampler states, kernel coefficients, ragged
-multi-dataset arrays and likelihood tables are converted to numpy there and rebuilt
-here with these helpers.
+multi-dataset arrays, likelihood tables and CARMA models are converted to
+numpy there and rebuilt here with these helpers.
 """
 
 from __future__ import annotations
@@ -15,10 +15,11 @@ import torch
 
 from . import priors
 from .config import DEFAULT_DTYPE, resolve_device
+from .models.carma import CARMA, quad2roots
 from .models.kernels import CeleriteKernel
 
 __all__ = ["prior_set_from_numpy", "ns_state_from_numpy", "coefficients_from_numpy",
-           "multi_inputs_from_numpy", "tables_from_numpy"]
+           "multi_inputs_from_numpy", "tables_from_numpy", "carma_from_numpy"]
 
 
 def prior_set_from_numpy(
@@ -92,3 +93,21 @@ def tables_from_numpy(U, V, phi, device=None, dtype: torch.dtype = DEFAULT_DTYPE
     card unless ``device="cpu"``."""
     dev = resolve_device(device)
     return tuple(torch.tensor(np.asarray(x), dtype=dtype, device=dev) for x in (U, V, phi))
+
+
+def carma_from_numpy(p: int, q: int, beta, norm=1.0, roots=None, quad=None,
+                     is_integrated_power: bool = True, device=None) -> CARMA:
+    """The port's :class:`~pioran_tpu_torch.models.carma.CARMA` from a JAX
+    ``CARMA``'s fields as numpy arrays: the p AR ``roots`` (complex) or
+    their quadratic coefficients ``quad`` (as ``quad2roots`` takes them),
+    the q + 1 MA coefficients ``beta`` and ``norm``. Roots become
+    complex128, beta and norm float64, on the card unless
+    ``device="cpu"``."""
+    if (roots is None) == (quad is None):
+        raise ValueError("give exactly one of roots and quad")
+    dev = resolve_device(device)
+    r = quad2roots(quad) if roots is None else torch.tensor(np.asarray(roots))
+    return CARMA.create(p, q, r.to(device=dev, dtype=torch.complex128),
+                        torch.tensor(np.asarray(beta), dtype=torch.float64),
+                        torch.tensor(np.asarray(norm), dtype=torch.float64),
+                        is_integrated_power=is_integrated_power)

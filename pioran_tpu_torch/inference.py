@@ -1,17 +1,21 @@
 """High-level inference entry points, PyTorch port of ``pioran_tpu.inference``.
 
-What is ported: the flagship single-bending power-law model
-(:func:`single_bending_model`) and :func:`run_inference` with every
-sampler of the JAX package: ``sampler="smc"`` (the default), ``"ns"``,
-``"nuts"``, ``"chees"`` (NUTS and ChEES-HMC optionally seeded by
+What is ported: the model builders of the JAX package, the flagship
+single-bending power-law model (:func:`single_bending_model`), the
+double-bending model (:func:`double_bending_model`), a periodic signal
+in red noise (:func:`periodic_rednoise_model`) and CARMA(p, q)
+(:func:`carma_model`); and :func:`run_inference` with every sampler of
+the JAX package: ``sampler="smc"`` (the default), ``"ns"``, ``"nuts"``,
+``"chees"`` (NUTS and ChEES-HMC optionally seeded by
 :func:`advi_seeded_inits`) and ``"advi"``, which write their results in
 the ultranest layout (``chains/equal_weighted_post.txt``,
 ``info/results.json``); and :func:`run_inference_many`, which fits the
 single-bending model to many ragged light curves as one ChEES ensemble.
-The likelihood of a batch of parameter vectors is one batched PSD ->
-celerite approximation (plain PyTorch) feeding the CUDA celerite kernels
-on the card (K1 or, for ragged per-chain grids, K2 without a gradient;
-K3 and K4 with one), or their plain versions on the CPU.
+The likelihood of a batch of parameter vectors is one batched parameter
+-> celerite coefficient map (plain PyTorch: the PSD approximation or
+CARMA's partial fractions) feeding the CUDA celerite kernels on the card
+(K1 or, for ragged per-chain grids, K2 without a gradient; K3 and K4
+with one), or their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ import torch
 
 from .config import DEFAULT_DTYPE, resolve_device
 from .convert import multi_inputs_from_numpy
-from .models.psd import SingleBendingPowerLaw
+from .models.carma import carma_celerite_coefs_real, poly_from_conjugate_pairs
+from .models.gp import CustomMean, _mean_vector
+from .models.psd import DoubleBendingPowerLaw, SingleBendingPowerLaw
 from .ops.approx import approx
 from .ops.cuda_celerite import batched_loglike, batched_loglike_multi
 from .priors import (
@@ -37,7 +43,10 @@ from .priors import (
     LogUniform,
     Normal,
     PriorSet,
+    ThreeUniformDependent,
+    TwoLogUniformDependent,
     TwoUniformDependent,
+    Uniform,
 )
 from .samplers.advi import run_advi
 from .samplers.chees import run_chees
@@ -47,7 +56,8 @@ from .samplers.smc import run_smc
 from .utils.insertion import insertion_order_test
 from .utils.mcmc_stats import summarize_chains
 
-__all__ = ["GPModelSpec", "single_bending_model", "advi_seeded_inits",
+__all__ = ["GPModelSpec", "single_bending_model", "double_bending_model",
+           "periodic_rednoise_model", "carma_model", "advi_seeded_inits",
            "run_inference", "run_inference_many"]
 
 @dataclass
@@ -59,7 +69,7 @@ class GPModelSpec:
     one-row case. ``prior`` is a PriorSet over theta and ``names``
     label theta's entries. ``gp_model`` and ``psd_model`` stay ``None``
     until the GP object API is ported. Tensors live on ``device`` in
-    ``dtype``.
+    ``dtype``. ``carma_pq`` is (p, q) for a CARMA model, else ``None``.
     """
 
     prior: PriorSet
@@ -76,6 +86,7 @@ class GPModelSpec:
     loglike_batch: Optional[Callable] = None
     device: torch.device = torch.device("cpu")
     dtype: torch.dtype = DEFAULT_DTYPE
+    carma_pq: Optional[Tuple[int, int]] = None
 
     def logpost_batch(self, Z):
         """(B, dim) unconstrained rows -> (B,) log-posteriors: the prior's
@@ -131,6 +142,44 @@ def _freq_range(t):
     return float(f_min), float(f_max)
 
 
+class _LightCurve(NamedTuple):
+    """One light curve on the device: t, y, yerr in the working dtype,
+    dt64 the spacings in float64, and the frequency band."""
+
+    device: torch.device
+    dt64: torch.Tensor
+    t: torch.Tensor
+    y: torch.Tensor
+    yerr: torch.Tensor
+    f_min: float
+    f_max: float
+
+
+def _light_curve(t, y, yerr, device, dtype) -> _LightCurve:
+    dev = resolve_device(device)
+    # consecutive spacings computed in host f64 before any f32 cast:
+    # diff of an f32 grid loses ~log2(N) bits for long dense series
+    dt64 = torch.as_tensor(np.diff(np.asarray(t, np.float64)), device=dev)
+    tt, yy, ee = (torch.as_tensor(np.asarray(x), dtype=dtype, device=dev) for x in (t, y, yerr))
+    return _LightCurve(dev, dt64, tt, yy, ee, *_freq_range(tt.cpu().numpy()))
+
+
+def _spec(lc: _LightCurve, prior, names, paramnames_split, coeff_fn, **extra) -> GPModelSpec:
+    """The GPModelSpec of a model whose batched coefficient map is
+    ``coeff_fn``: (B, dim) theta -> (a, b, c, d, y - mean, sigma^2)."""
+    loglike_batch = _batched_loglike_from_coeffs(coeff_fn, lc.t, dt=lc.dt64)
+
+    def loglike(th):
+        return loglike_batch(th[None])[0]
+
+    return GPModelSpec(
+        prior=prior, loglike=loglike, names=names,
+        gp_model=None, psd_model=None, paramnames_split=paramnames_split,
+        t=lc.t.cpu().numpy(), y=lc.y.cpu().numpy(), yerr=lc.yerr.cpu().numpy(),
+        f_min=lc.f_min, f_max=lc.f_max, loglike_batch=loglike_batch,
+        device=lc.device, dtype=lc.t.dtype, **extra)
+
+
 def single_bending_model(
     t, y, yerr, xbar, va,
     n_components: int = 20,
@@ -159,17 +208,11 @@ def single_bending_model(
     ``device`` (default: the card; ``device="cpu"`` for the CPU) and
     ``dtype`` place the data and every likelihood evaluation. On the card
     the likelihood and its gradient run the hand-written CUDA kernels;
-    with no card and no ``device`` this raises ``RuntimeError``.
+    with no card and no ``device`` this raises ``RuntimeError``. The
+    other builders take the same two keywords.
     """
-    dev = resolve_device(device)
-    # consecutive spacings computed in host f64 before any f32 cast:
-    # diff of an f32 grid loses ~log2(N) bits for long dense series
-    dt64 = torch.as_tensor(np.diff(np.asarray(t, np.float64)), device=dev)
-    tt = torch.as_tensor(np.asarray(t), dtype=dtype, device=dev)
-    yy = torch.as_tensor(np.asarray(y), dtype=dtype, device=dev)
-    ee = torch.as_tensor(np.asarray(yerr), dtype=dtype, device=dev)
-    t_np, y_np = tt.cpu().numpy(), yy.cpu().numpy()
-    f_min, f_max = _freq_range(t_np)
+    lc = _light_curve(t, y, yerr, device, dtype)
+    f_min, f_max = lc.f_min, lc.f_max
     min_f_b, max_f_b = f_min / 20.0 * 4.0, f_max * 20.0 / 4.0
 
     items = [
@@ -181,9 +224,9 @@ def single_bending_model(
     ]
     names = ["α₁", "α₂", "f₁", "variance", "ν", "μ"]
     if use_c:
-        items.append(("c", LogUniform(1e-6, float(np.min(y_np)) * 0.99)))
+        items.append(("c", LogUniform(1e-6, float(lc.y.min()) * 0.99)))
         names.append("c")
-    prior = PriorSet(items)
+    yy, ee = lc.y, lc.yerr
     yn = torch.log(yy)
 
     def coeff_fn(TH):
@@ -203,21 +246,205 @@ def single_bending_model(
             s2 = nu[:, None] * ee**2 / yy**2
         return a, b, c, d, yv - mu[:, None], s2
 
-    loglike_batch = _batched_loglike_from_coeffs(coeff_fn, tt, dt=dt64)
+    return _spec(lc, PriorSet(items), names,
+                 {"psd": ["α₁", "f₁", "α₂"], "norm": "variance", "scale_err": "ν", "mean": "μ",
+                  **({"log_transform": "c"} if use_c else {})},
+                 coeff_fn)
 
-    def loglike(th):
-        return loglike_batch(th[None])[0]
 
-    return GPModelSpec(
-        prior=prior, loglike=loglike, names=names,
-        gp_model=None, psd_model=None,
-        paramnames_split={"psd": ["α₁", "f₁", "α₂"], "norm": "variance",
-                          "scale_err": "ν", "mean": "μ",
-                          **({"log_transform": "c"} if use_c else {})},
-        t=t_np, y=y_np, yerr=ee.cpu().numpy(),
-        f_min=f_min, f_max=f_max, loglike_batch=loglike_batch,
-        device=dev, dtype=dtype,
-    )
+def double_bending_model(
+    t, y, yerr, xbar, va,
+    n_components: int = 20,
+    basis_function: str = "SHO",
+    device=None,
+    dtype: torch.dtype = DEFAULT_DTYPE,
+) -> GPModelSpec:
+    """The reference's double-bending power-law model
+    (examples/ultranest/double_pl.jl):
+
+    theta = (alpha_1, alpha_2, alpha_3, f_1, f_2, variance, nu, mu);
+    alpha_1 ~ U(0, 1.5), alpha_2 ~ U(alpha_1, 4), alpha_3 ~ U(alpha_2, 4);
+    f_1 ~ logU(f0*4, fM/4), f_2 ~ logU(f_1, fM/4); the rest, and the
+    log-transform with sigma^2 = nu yerr^2 / y^2, as in
+    :func:`single_bending_model`.
+    """
+    lc = _light_curve(t, y, yerr, device, dtype)
+    f_min, f_max = lc.f_min, lc.f_max
+    min_f_b, max_f_b = f_min / 20.0 * 4.0, f_max * 20.0 / 4.0
+    prior = PriorSet([
+        ("alphas", ThreeUniformDependent(0.0, 1.5, 4.0)),
+        ("f_bends", TwoLogUniformDependent(min_f_b, max_f_b)),
+        ("variance", LogNormal(2 * -1.5, np.sqrt(2.0) * 1.0)),
+        ("nu", Gamma(2.0, 0.5)),
+        ("mu", Normal(xbar, 5.0 * np.sqrt(va))),
+    ])
+    yn = torch.log(lc.y)
+
+    def coeff_fn(TH):
+        a1, a2, a3, f1, f2, var, nu, mu = (TH[:, i] for i in range(8))
+        kern = approx(
+            DoubleBendingPowerLaw(a1, f1, a2, f2, a3), f_min, f_max,
+            n_components, var, basis_function=basis_function,
+        )
+        a, b, c, d = kern.coefficients()
+        return a, b, c, d, yn - mu[:, None], nu[:, None] * lc.yerr**2 / lc.y**2
+
+    return _spec(lc, prior, ["α₁", "α₂", "α₃", "f₁", "f₂", "variance", "ν", "μ"],
+                 {"psd": ["α₁", "f₁", "α₂", "f₂", "α₃"], "norm": "variance",
+                  "scale_err": "ν", "mean": "μ"},
+                 coeff_fn)
+
+
+def periodic_rednoise_model(
+    t, y, yerr, xbar, va,
+    n_components: int = 20,
+    basis_function: str = "SHO",
+    device=None,
+    dtype: torch.dtype = DEFAULT_DTYPE,
+) -> GPModelSpec:
+    """A periodic signal in red noise: the single-bending GP with a
+    sinusoidal :class:`~pioran_tpu_torch.models.gp.CustomMean` (reference
+    examples/ultranest/single_pl_periodicity.jl:103-148):
+
+    theta = (alpha_1, alpha_2, f_1, variance, nu, mu, A, phi, T0);
+    mean(t) = A sin(2 pi t / T0 + phi) + mu, computed in ``dtype`` on the
+    working grid; no log-transform: sigma^2 = nu yerr^2. Priors:
+    A ~ LogNormal(0, 1), phi ~ U(0, 2 pi), T0 ~ U(0, T_span); the rest as
+    in :func:`single_bending_model`.
+    """
+    lc = _light_curve(t, y, yerr, device, dtype)
+    f_min, f_max = lc.f_min, lc.f_max
+    min_f_b, max_f_b = f_min / 20.0 * 4.0, f_max * 20.0 / 4.0
+    T_span = float(lc.t[-1] - lc.t[0])
+    prior = PriorSet([
+        ("alphas", TwoUniformDependent(0.0, 1.5, 4.0)),
+        ("f_1", LogUniform(min_f_b, max_f_b)),
+        ("variance", LogNormal(2 * -1.5, np.sqrt(2.0) * 1.0)),
+        ("nu", Gamma(2.0, 0.5)),
+        ("mu", Normal(xbar, 5.0 * np.sqrt(va))),
+        ("A", LogNormal(0.0, 1.0)),
+        ("phi", Uniform(0.0, 2.0 * np.pi)),
+        ("T0", Uniform(0.0, T_span)),
+    ])
+
+    def mean_fn(x, A, phi, T0, mu):
+        return A * torch.sin(2.0 * math.pi * x / T0 + phi) + mu
+
+    def coeff_fn(TH):
+        a1, a2, f1, var, nu, mu, A, phi, T0 = (TH[:, i] for i in range(9))
+        kern = approx(
+            SingleBendingPowerLaw(a1, f1, a2), f_min, f_max,
+            n_components, var, basis_function=basis_function,
+        )
+        a, b, c, d = kern.coefficients()
+        A, phi, T0, mu = (v[:, None] for v in (A, phi, T0, mu))
+        m = _mean_vector(CustomMean(lambda x: mean_fn(x, A, phi, T0, mu)), lc.t)
+        return a, b, c, d, lc.y - m, nu[:, None] * lc.yerr**2
+
+    return _spec(lc, prior, ["α₁", "α₂", "f₁", "variance", "ν", "μ", "A", "ϕ", "T₀"],
+                 {"psd": ["α₁", "f₁", "α₂"], "norm": "variance", "scale_err": "ν",
+                  "mean": ["A", "ϕ", "T₀", "μ"]},
+                 coeff_fn)
+
+
+def carma_model(
+    t, y, yerr, xbar, va,
+    p: int = 2,
+    q: int = 0,
+    use_c: bool = False,
+    mu_n: float = -3.0,
+    sigma_n: float = float(np.sqrt(2.0)),
+    device=None,
+    dtype: torch.dtype = DEFAULT_DTYPE,
+) -> GPModelSpec:
+    """The CARMA(p, q) model (reference docs/src/carma.md:63-200).
+
+    The reference parameterizes the AR and MA polynomials by quadratic
+    factors x^2 + b x + c with the dependent prior
+    ``c ~ U(0, f_max^2) + b^2/4``, ``b ~ logU(2 f_min, 2 f_max)`` (an
+    odd order's trailing factor ``~ logU(f_min, f_max)``), and rejects
+    parameters whose roots leave the band ``-f_max < Re r < -f_min``,
+    ``|Im r| < f_max``. Here, as in the JAX package, theta carries
+    ``u = c - b^2/4 ~ U(0, f_max^2)`` itself, so every draw is a
+    conjugate pair with ``Re r = -b/2`` in (-f_max, -f_min) and
+    ``|Im r| = sqrt(u) < f_max``: the constraint holds with prior
+    probability 1. The reference's root-ordering rejection is commented
+    out there and left out here.
+
+    theta = [ (u_k, b_k) x p//2, (r_p if p odd),
+              (u_k, b_k) x q//2, (r_q if q odd),
+              variance, nu, mu, (c if use_c) ],
+    variance ~ LogNormal(mu_n, sigma_n). The likelihood runs the real
+    partial-fraction path (J = ceil(p/2) celerite terms). With ``use_c``
+    the data transform is log(y - c) with sigma^2 = nu yerr^2/(y - c)^2;
+    otherwise the log-transform of :func:`single_bending_model`.
+    """
+    lc = _light_curve(t, y, yerr, device, dtype)
+    f_min, f_max = lc.f_min, lc.f_max
+
+    items: List[Tuple[str, object]] = []
+    names: List[str] = []
+    for tag, order in (("a", p), ("b", q)):
+        for k in range(order // 2):
+            items.append((f"q{tag}_u{k}", Uniform(0.0, f_max**2)))
+            items.append((f"q{tag}_b{k}", LogUniform(2 * f_min, 2 * f_max)))
+            names += [f"q{tag}_u{k}", f"q{tag}_b{k}"]
+        if order % 2 == 1:
+            items.append((f"q{tag}_r", LogUniform(f_min, f_max)))
+            names.append(f"q{tag}_r")
+    items += [
+        ("variance", LogNormal(mu_n, sigma_n)),
+        ("nu", Gamma(2.0, 0.5)),
+        ("mu", Normal(xbar, 5.0 * np.sqrt(va))),
+    ]
+    names += ["variance", "ν", "μ"]
+    if use_c:
+        items.append(("c", LogUniform(1e-6, float(lc.y.min()) * 0.99)))
+        names.append("c")
+    n_ar = 2 * (p // 2) + (p % 2)
+    n_ma = 2 * (q // 2) + (q % 2)
+    yy, ee = lc.y, lc.yerr
+    yn = torch.log(yy)
+
+    def _roots(TH, i, order):
+        """(re, im) lists of the order roots from the (u, b) and r columns
+        starting at i, each (B,), and the next column."""
+        re_l, im_l = [], []
+        for _ in range(order // 2):
+            x, yv = -0.5 * TH[:, i + 1], torch.sqrt(TH[:, i])
+            re_l += [x, x]
+            im_l += [yv, -yv]
+            i += 2
+        if order % 2 == 1:
+            re_l.append(-TH[:, i])
+            im_l.append(torch.zeros_like(TH[:, i]))
+            i += 1
+        return re_l, im_l, i
+
+    def coeff_fn(TH):
+        ar_re, ar_im, i = _roots(TH, 0, p)
+        ma_re, ma_im, i = _roots(TH, i, q)
+        var, nu, mu = TH[:, i], TH[:, i + 1], TH[:, i + 2]
+        if q > 0:
+            beta = poly_from_conjugate_pairs(
+                ma_re[0:2 * (q // 2):2], ma_im[0:2 * (q // 2):2],
+                [ma_re[q - 1]] if q % 2 == 1 else [])
+        else:
+            beta = TH.new_ones(1)
+        a, b, cc, d = carma_celerite_coefs_real(p, ar_re, ar_im, beta, norm=var)
+        if use_c:
+            c_off = TH[:, i + 3:i + 4]
+            yv = torch.log(yy - c_off)
+            s2 = nu[:, None] * ee**2 / (yy - c_off) ** 2
+        else:
+            yv = yn
+            s2 = nu[:, None] * ee**2 / yy**2
+        return a, b, cc, d, yv - mu[:, None], s2
+
+    return _spec(lc, PriorSet(items), names,
+                 {"psd": names[: n_ar + n_ma], "norm": "variance", "scale_err": "ν",
+                  "mean": "μ", **({"log_transform": "c"} if use_c else {})},
+                 coeff_fn, carma_pq=(p, q))
 
 
 # final per-sample likelihood sweeps process at most this many samples

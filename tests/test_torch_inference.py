@@ -150,6 +150,8 @@ def test_port_never_imports_jax():
     files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")]
     files.append(os.path.join(os.path.dirname(root), "chip_smoke.py"))
     assert len(files) > 10
+    for new in (("models", "carma.py"), ("models", "gp.py"), ("utils", "roots.py")):
+        assert os.path.join(root, *new) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
