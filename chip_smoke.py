@@ -35,7 +35,12 @@ maximum-likelihood point, with K1 and K3/K4 against their plain versions
 on the model's own coefficients and its float64 gradient; and
 ``run_inference(sampler="smc")`` on the double-bending, periodic and
 CARMA(2,1) models, gated as the JAX package's parity runs are (logZ,
-posterior pulls and widths).
+posterior pulls and widths). Last, the post-fit path in float64: the GP
+objects' logpdf at the flagship point (K1), its gradient and the
+posterior solve (K3/K4), the posterior mean and covariance against the
+dense predictors, prior draws, and ``run_posterior_predict_checks`` on
+the SMC posterior (without figures: the card's machine has no
+matplotlib).
 Between them it checks the flagship gradients and the N = 2^16 gradient.
 Each phase prints its lines; any failure exits non-zero before the result
 lines. The last two lines are the kernel table (JSON) and
@@ -1615,6 +1620,185 @@ def smc_gate(name):
                 against="the referee")
 
 
+def rel_norm(x, ref) -> float:
+    """Largest row-wise 2-norm relative error of x against ref, (B, N)."""
+    return float((torch.linalg.vector_norm(x - ref, dim=-1)
+                  / torch.linalg.vector_norm(ref, dim=-1)).max())
+
+
+def phase_post_fit(dev, out_dir):
+    """Phase 19: the GP object API and the post-fit diagnostics on the card.
+
+    logpdf at the flagship point through K1 (float64, and float32 on the
+    same inputs rounded), its gradient through K3/K4 against autograd
+    through the plain loop, the posterior solve z = -ȳ of K3/K4 against
+    the plain three-scan solve, PosteriorGP's mean (both methods), cov
+    and std against the dense predictors at M = 2N, simulate's whitened
+    draws at B = 2048, and run_posterior_predict_checks on phase 14's
+    SMC posterior (float64, 100 draws for the time series, the JAX
+    default of up to 1000 for the periodogram, no figures: the card's
+    machine has no matplotlib). Returns the phase's K1/K3/K4 launches;
+    the comparisons with plain versions launch nothing and the timings
+    after the main path are not counted."""
+    from pioran_tpu_torch import single_bending_model
+    from pioran_tpu_torch.diagnostics import run_posterior_predict_checks
+    from pioran_tpu_torch.models.gp import ScalableGP, posterior
+    from pioran_tpu_torch.models.kernels import CeleriteKernel
+    from pioran_tpu_torch.ops import celerite as cel, cuda_celerite, direct
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+
+    f64 = torch.float64
+    A = np.loadtxt(os.path.join(DATA, "simu.txt"))
+    xbar, va = float(np.mean(np.log(A[:, 1]))), float(np.var(np.log(A[:, 1])))
+    full = single_bending_model(A[:, 0], A[:, 1], A[:, 2], xbar, va, device=dev, dtype=f64)
+    sub, sxbar, sva = load_subset()
+    spec = single_bending_model(sub[:, 0], sub[:, 1], sub[:, 2], sxbar, sva, device=dev,
+                                dtype=f64)
+    t = torch.as_tensor(spec.t, device=dev)
+    obs = torch.log(torch.as_tensor(spec.y, device=dev))
+    th = torch.tensor(FLAGSHIP_THETA, dtype=f64, device=dev)
+    rows4 = torch.cat([th[None], referee_thetas(spec, 3, torch.Generator(device=dev)
+                                                .manual_seed(19))])
+
+    cuda_celerite.LAUNCHES = 0
+    vjp.FWD_AUG_LAUNCHES = vjp.BWD_LAUNCHES = 0
+    counts = lambda: (cuda_celerite.LAUNCHES, vjp.FWD_AUG_LAUNCHES,  # noqa: E731
+                      vjp.BWD_LAUNCHES)
+    t_wall = time.perf_counter()
+
+    # logpdf through K1: float64 at the flagship point, then the same
+    # inputs rounded to float32, held to phase 2's gate against the plain
+    # loop in float32 and to phase 4's against the float64 value (float32
+    # input rounding alone moves this value 0.02-0.06 nats; float32's own
+    # basis solve adds about 0.16, phase 4)
+    fx = full.gp_model(full.t, full.y, full.yerr, th[None])
+    fobs = torch.log(torch.as_tensor(full.y, device=dev))
+    before = counts()
+    ll64 = float(fx.logpdf(fobs)[0])
+    check(counts() == (before[0] + 1,) + before[1:], f"logpdf launches {before} -> {counts()}")
+    rel64 = abs(ll64 / FLAGSHIP_LL64 - 1.0)
+    check(rel64 <= 1e-9, f"f64 logpdf {ll64!r}: rel {rel64:.3e} from {FLAGSHIP_LL64!r}")
+    k = fx.gp.kernel
+    fx32 = ScalableGP(fx.gp.mean.float(), CeleriteKernel(*(x.float() for x in
+                                                            k.coefficients())))(
+        fx.t.float(), fx.sigma2.float())
+    ll32 = float(fx32.logpdf(fobs.float())[0])
+    k32 = fx32.gp.kernel.coefficients()
+    ll32_plain = float(cuda_celerite.batched_loglike_plain(
+        *k32, fx32.t, fx32._resid(fobs.float()).contiguous(), fx32.sigma2)[0])
+    check(abs(ll32 - ll32_plain) <= 0.05 and abs(ll32 - FLAGSHIP_LL64) <= 0.5,
+          f"f32 logpdf {ll32!r}: plain loop {ll32_plain!r}, f64 reference {FLAGSHIP_LL64!r}")
+
+    # the gradient of logpdf in the coefficients, K3/K4 against autograd
+    # through the plain loop, four rows of the subset
+    gp4 = spec.gp_model(t, spec.y, spec.yerr, rows4)
+    leaves = [x.detach().clone().requires_grad_(True) for x in gp4.gp.kernel.coefficients()]
+    fx4 = ScalableGP(gp4.gp.mean, CeleriteKernel(*leaves))(t, gp4.sigma2)
+    before = counts()
+    fx4.logpdf(obs).sum().backward()
+    check(counts() == (before[0], before[1] + 1, before[2] + 1),
+          f"gradient launches {before} -> {counts()}")
+    grads = [x.grad for x in leaves]
+    plain = [x.detach().clone().requires_grad_(True) for x in leaves]
+    resid = (obs - gp4.gp.mean).expand(4, -1).contiguous()
+    cuda_celerite.batched_loglike_plain(*plain, t, resid, gp4.sigma2.contiguous()).sum().backward()
+    grad_rel = max(rel_norm(g, p.grad) for g, p in zip(grads, plain))
+    check(grad_rel <= 1e-8, f"logpdf gradient rel {grad_rel:.3e} > 1e-8")
+
+    # the posterior solve: z = -ȳ of K3/K4 against the plain three-scan solve
+    before = counts()
+    z = cel._solve(gp4.gp.kernel, t, resid, gp4.sigma2)
+    check(counts() == (before[0], before[1] + 1, before[2] + 1),
+          f"solve launches {before} -> {counts()}")
+    z_ref = cel.celerite_factor_solve(*gp4.gp.kernel.coefficients(), t, resid, gp4.sigma2)[0]
+    solve_rel = rel_norm(z, z_ref)
+    check(solve_rel <= 1e-9, f"posterior solve rel {solve_rel:.3e} > 1e-9")
+
+    # PosteriorGP at M = 2N against the dense predictors
+    tau = torch.linspace(float(t[0]), float(t[-1]), 2 * len(t), dtype=f64, device=dev)
+    post = posterior(gp4, obs)
+    mean_ref, cov_ref = direct.predict_direct(gp4.gp.kernel, tau, t, resid, gp4.sigma2,
+                                              with_covariance=True)
+    mean_ref = mean_ref + gp4.gp.mean
+    mean_rel = max(rel_norm(post.mean(tau, method=m), mean_ref) for m in ("matmul", "scan"))
+    check(mean_rel <= 1e-8, f"posterior mean rel {mean_rel:.3e} > 1e-8")
+    cov_rel = float((post.cov(tau) - cov_ref).abs().max() / cov_ref.abs().max())
+    std_rel = rel_norm(post.std(tau), torch.sqrt(torch.diagonal(cov_ref, dim1=-2, dim2=-1)))
+    check(max(cov_rel, std_rel) <= 1e-8, f"posterior cov/std rel {cov_rel:.3e}/{std_rel:.3e}")
+
+    # simulate at B = 2048 draws, whitened by the dense factor
+    sim_B = 2048
+    k0 = CeleriteKernel(*(x[:1].expand(sim_B, -1) for x in gp4.gp.kernel.coefficients()))
+    gen = torch.Generator(device=dev).manual_seed(190)
+    draws = cel.simulate(gen, k0, t, gp4.sigma2[0])
+    L = torch.linalg.cholesky(direct.covariance_matrix(
+        CeleriteKernel(*(x[0] for x in gp4.gp.kernel.coefficients())), t, t)
+        + torch.diag(gp4.sigma2[0]))
+    white = torch.linalg.solve_triangular(L, draws.T, upper=False)
+    w_mean, w_var = float(white.mean()), float(white.var(unbiased=False))
+    check(abs(w_mean) < 0.02 and abs(w_var - 1.0) <= 0.03,
+          f"simulate whitened mean {w_mean:.4f} var {w_var:.4f}")
+
+    # the posterior predictive checks on phase 14's SMC posterior
+    samples = np.loadtxt(os.path.join(out_dir, "smc", "chains", "equal_weighted_post.txt"),
+                         skiprows=1)
+    ppc_dir = os.path.join(out_dir, "ppc") + os.sep
+    check_s, ppc_gen = {}, torch.Generator(device=dev).manual_seed(0)
+    for plot in ("psd", "lsp", "timeseries"):
+        t0 = time.perf_counter()
+        run_posterior_predict_checks(samples, spec.names, spec.paramnames_split, spec.t,
+                                     spec.y, spec.yerr, spec.psd_model, spec.gp_model, True,
+                                     plots=[plot], n_samples=100, path=ppc_dir,
+                                     generator=ppc_gen, make_figures=False, device=dev,
+                                     dtype=f64)
+        torch.cuda.synchronize()
+        check_s[plot] = round(time.perf_counter() - t0, 3)
+    for name in ("psd_ppc_data.txt", "psd_noise_levels.txt", "lsp_ppc_data.txt",
+                 "binned_lsp_data.txt", "ppc_timeseries_quantiles.txt",
+                 "ppc_residuals_quantiles.txt", "ppc_residuals_mean.txt", "ppc_t_pred.txt",
+                 "ppc_residuals_acvf.txt"):
+        x = np.loadtxt(ppc_dir + name)
+        check(bool(np.all(np.isfinite(x))), f"{name} not finite")
+    psd_shape = np.loadtxt(ppc_dir + "psd_ppc_data.txt").shape
+    check(psd_shape == (11, 1000), f"psd_ppc_data.txt is {psd_shape}")
+    res_abs = float(np.abs(np.loadtxt(ppc_dir + "ppc_residuals_mean.txt")).mean())
+    check(res_abs < 5.0, f"mean absolute standardized residual {res_abs:.3f} >= 5")
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_wall
+    k1, k3, k4 = counts()
+    launches = {"celerite_fwd": k1, "celerite_fwd_aug": k3, "celerite_bwd": k4}
+    check(min(launches.values()) > 0, f"a kernel of the post-fit path never ran: {launches}")
+
+    # card times (CUDA events), not counted as the path's launches
+    gp100 = spec.gp_model(t, spec.y, spec.yerr, samples[:100])
+    r100 = gp100._resid(obs)
+    one = spec.gp_model(t, spec.y, spec.yerr, th[None])
+    ms = {
+        "logpdf_B1": cuda_ms(lambda: one.logpdf(obs), 20),
+        "logpdf_B100": cuda_ms(lambda: gp100.logpdf(obs), 20),
+        "solve_B100": cuda_ms(lambda: cel._solve(gp100.gp.kernel, t, r100, gp100.sigma2), 10),
+        "predict_matmul_B100": cuda_ms(lambda: cel.predict_matmul(
+            gp100.gp.kernel, tau, t, r100, gp100.sigma2), 5),
+        "predict_B100": cuda_ms(lambda: cel.predict(gp100.gp.kernel, tau, t, r100,
+                                                     gp100.sigma2), 3),
+        f"simulate_B{sim_B}": cuda_ms(lambda: cel.simulate(gen, k0, t, gp4.sigma2[0]), 3),
+    }
+    print(f"phase 19 post-fit: logpdf f64 {ll64!r} (rel {rel64:.2e}, one K1 launch), f32 on "
+          f"the rounded inputs {ll32!r} (plain f32 loop {ll32_plain!r}: abs "
+          f"{abs(ll32 - ll32_plain):.4f}; from the f64 reference {abs(ll32 - FLAGSHIP_LL64):.4f}"
+          f"); gradient 4 rows "
+          f"rel {grad_rel:.3e} (K3, K4 once); solve -ybar rel {solve_rel:.3e}; posterior "
+          f"M={len(tau)} mean rel {mean_rel:.3e} cov {cov_rel:.3e} std {std_rel:.3e}; "
+          f"simulate B={sim_B} whitened mean {w_mean:.4f} var {w_var:.4f}")
+    print(f"phase 19 PPC: {samples.shape[0]} posterior rows, psd_ppc_data {psd_shape}, mean "
+          f"|standardized residual| {res_abs:.3f}; check wall_s {check_s}; path wall_s "
+          f"{path_s:.2f} launches {launches}")
+    print(f"phase 19 times (CUDA events, ms, float64, N={len(t)}, M={len(tau)}): "
+          + " ".join(f"{k}={v:.4f}" for k, v in ms.items()))
+    print("phase 19 post-fit: ok")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
@@ -1660,19 +1844,21 @@ def main(argv=None) -> int:
     nuts_launches = timed("16", phase_nuts_flagship, dev, args.out)
     timed("17", phase_builders, dev)
     builder_launches = timed("18", phase_builders_smc, dev, args.out)
+    post_launches = timed("19", phase_post_fit, dev, args.out)
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t_start:.1f} s; "
           f"phase wall_s {walls}; "
           f"launches on the main paths: NS {{'celerite_fwd': {ns_launches}}}, "
           f"ChEES {chees_launches}, multi-dataset no-gradient sweeps "
           f"{{'celerite_fwd_multi': {k2_launches}}}, run_inference_many {many_launches}, "
           f"batched_loglike_tables {{'celerite_tables': {k0_launches}}}, SMC {smc_launches}, "
-          f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}")
+          f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}, "
+          f"post-fit {post_launches}")
 
     # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
     # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS,
-    # the other builders' SMC)
+    # the other builders' SMC, the post-fit path)
     t512 = timing[512]
-    paths = (chees_launches, smc_launches, nuts_launches, builder_launches)
+    paths = (chees_launches, smc_launches, nuts_launches, builder_launches, post_launches)
     rows = {
         "celerite_fwd": (ns_launches + sum(p["celerite_fwd"] for p in paths), f32_err, k_ms,
                          p_ms, k1_cost(PHASE2_BATCHES[0])),

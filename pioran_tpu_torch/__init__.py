@@ -12,11 +12,14 @@ tempered SMC, nested sampling, NUTS, ChEES-HMC, ADVI, CARMA(p, q) models
 (``models.carma``) and sinusoidal means (``models.gp.CustomMean``), the
 model builders of the JAX package (single- and double-bending power laws,
 a periodic signal in red noise, CARMA) with ``run_inference(sampler="smc"
-| "ns" | "nuts" | "chees" | "advi")``, and the multi-dataset axis:
+| "ns" | "nuts" | "chees" | "advi")``, the multi-dataset axis:
 ``run_inference_many``
 over ragged light curves on the ragged batched likelihood
-``batched_loglike_multi``. Entry points run on the card unless given
-``device="cpu"``.
+``batched_loglike_multi``, the GP object API (``ScalableGP``,
+``posterior``: log-likelihoods, prior draws, posterior means and
+covariances, batched over GPs) and the post-fit diagnostics
+(``run_diagnostics``, ``run_posterior_predict_checks``). Entry points
+run on the card unless given ``device="cpu"``.
 """
 
 from .config import require_cuda
@@ -40,14 +43,31 @@ from .models.kernels import (
     celerite_psd,
     celerite_covariance,
 )
+from .ops.approx import (
+    approx,
+    approximated_psd,
+    get_approx_coefficients,
+)
+from .ops import celerite as celerite_ops
+from .ops import direct as direct_ops
+from .models.gp import (
+    ScalableGP,
+    GaussianProcess,
+    ConditionedGP,
+    PosteriorGP,
+    CustomMean,
+    posterior,
+)
 from .models.carma import CARMA, quad2roots, roots2coeffs
-from .models.gp import CustomMean
-from .ops.approx import approx, get_approx_coefficients
+from .ops.celerite import log_likelihood
 from .priors import (
     TwoUniformDependent,
     ThreeUniformDependent,
     TwoLogUniformDependent,
 )
+from .utils.subset import extract_subset
+from .diagnostics.approx_checks import run_diagnostics, sample_approx_model
+from .diagnostics.ppc import run_posterior_predict_checks
 from .ops.cuda_celerite import batched_loglike, batched_loglike_multi
 from .inference import (
     advi_seeded_inits,

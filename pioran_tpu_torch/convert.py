@@ -2,8 +2,8 @@
 
 The port's tests feed the JAX package and this one the same inputs:
 the JAX side's prior sets, sampler states, kernel coefficients, ragged
-multi-dataset arrays, likelihood tables and CARMA models are converted to
-numpy there and rebuilt here with these helpers.
+multi-dataset arrays, likelihood tables, CARMA models and conditioned GPs
+are converted to numpy there and rebuilt here with these helpers.
 """
 
 from __future__ import annotations
@@ -16,10 +16,12 @@ import torch
 from . import priors
 from .config import DEFAULT_DTYPE, resolve_device
 from .models.carma import CARMA, quad2roots
+from .models.gp import ConditionedGP, ScalableGP
 from .models.kernels import CeleriteKernel
 
 __all__ = ["prior_set_from_numpy", "ns_state_from_numpy", "coefficients_from_numpy",
-           "multi_inputs_from_numpy", "tables_from_numpy", "carma_from_numpy"]
+           "multi_inputs_from_numpy", "tables_from_numpy", "carma_from_numpy",
+           "gp_from_numpy"]
 
 
 def prior_set_from_numpy(
@@ -111,3 +113,16 @@ def carma_from_numpy(p: int, q: int, beta, norm=1.0, roots=None, quad=None,
                         torch.tensor(np.asarray(beta), dtype=torch.float64),
                         torch.tensor(np.asarray(norm), dtype=torch.float64),
                         is_integrated_power=is_integrated_power)
+
+
+def gp_from_numpy(a, b, c, d, t, sigma2, mean=0.0, device=None,
+                  dtype: torch.dtype = DEFAULT_DTYPE) -> ConditionedGP:
+    """The port's ConditionedGP from a JAX GP's inputs as numpy arrays:
+    (..., J) coefficients, the grid t (N,), the noise variances sigma2
+    (..., N) and a constant mean (a scalar, or (..., 1) for one per GP);
+    on the card unless ``device="cpu"``."""
+    kernel = coefficients_from_numpy(a, b, c, d, device=device, dtype=dtype)
+    dev = kernel.a.device
+    t, sigma2, mean = (torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+                       for x in (t, sigma2, mean))
+    return ScalableGP(mean, kernel)(t, sigma2)

@@ -33,7 +33,8 @@ import torch
 from .config import DEFAULT_DTYPE, resolve_device
 from .convert import multi_inputs_from_numpy
 from .models.carma import carma_celerite_coefs_real, poly_from_conjugate_pairs
-from .models.gp import CustomMean, _mean_vector
+from .models.gp import ConditionedGP, CustomMean, ScalableGP, _mean_vector
+from .models.kernels import CeleriteKernel
 from .models.psd import DoubleBendingPowerLaw, SingleBendingPowerLaw
 from .ops.approx import approx
 from .ops.cuda_celerite import batched_loglike, batched_loglike_multi
@@ -67,8 +68,12 @@ class GPModelSpec:
     ``loglike_batch(TH)`` maps ``(B, dim)`` parameter rows to ``(B,)``
     GP log-likelihoods of the transformed data; ``loglike(th)`` is its
     one-row case. ``prior`` is a PriorSet over theta and ``names``
-    label theta's entries. ``gp_model`` and ``psd_model`` stay ``None``
-    until the GP object API is ported. Tensors live on ``device`` in
+    label theta's entries. ``gp_model(t, y, yerr, TH)`` takes (P, dim)
+    rows of theta in spec order (and t, y, yerr as arrays or tensors) and
+    returns one batched ConditionedGP of the P GPs, the input of
+    ``diagnostics.run_posterior_predict_checks``; ``psd_model`` is the
+    PSD class whose columns ``paramnames_split["psd"]`` name (``None``
+    for CARMA, as in the JAX package). Tensors live on ``device`` in
     ``dtype``. ``carma_pq`` is (p, q) for a CARMA model, else ``None``.
     """
 
@@ -164,7 +169,23 @@ def _light_curve(t, y, yerr, device, dtype) -> _LightCurve:
     return _LightCurve(dev, dt64, tt, yy, ee, *_freq_range(tt.cpu().numpy()))
 
 
-def _spec(lc: _LightCurve, prior, names, paramnames_split, coeff_fn, **extra) -> GPModelSpec:
+def _gp_model(lc: _LightCurve, kernel_fn, mean_fn, noise_fn):
+    """A spec's ``gp_model``: (t, y, yerr, (P, dim) theta) -> the batched
+    ConditionedGP with kernel ``kernel_fn(TH)``, mean ``mean_fn(TH)``
+    and noise variances ``noise_fn(TH, y, yerr)``, in the spec's dtype
+    on its device."""
+
+    def gp_model(tt, yy, ee, TH) -> ConditionedGP:
+        tt, yy, ee, TH = (torch.as_tensor(x, dtype=lc.t.dtype, device=lc.device)
+                          for x in (tt, yy, ee, TH))
+        TH = torch.atleast_2d(TH)
+        return ScalableGP(mean_fn(TH), kernel_fn(TH))(tt, noise_fn(TH, yy, ee))
+
+    return gp_model
+
+
+def _spec(lc: _LightCurve, prior, names, paramnames_split, coeff_fn, gp_model, psd_model,
+          **extra) -> GPModelSpec:
     """The GPModelSpec of a model whose batched coefficient map is
     ``coeff_fn``: (B, dim) theta -> (a, b, c, d, y - mean, sigma^2)."""
     loglike_batch = _batched_loglike_from_coeffs(coeff_fn, lc.t, dt=lc.dt64)
@@ -174,7 +195,7 @@ def _spec(lc: _LightCurve, prior, names, paramnames_split, coeff_fn, **extra) ->
 
     return GPModelSpec(
         prior=prior, loglike=loglike, names=names,
-        gp_model=None, psd_model=None, paramnames_split=paramnames_split,
+        gp_model=gp_model, psd_model=psd_model, paramnames_split=paramnames_split,
         t=lc.t.cpu().numpy(), y=lc.y.cpu().numpy(), yerr=lc.yerr.cpu().numpy(),
         f_min=lc.f_min, f_max=lc.f_max, loglike_batch=loglike_batch,
         device=lc.device, dtype=lc.t.dtype, **extra)
@@ -229,27 +250,28 @@ def single_bending_model(
     yy, ee = lc.y, lc.yerr
     yn = torch.log(yy)
 
-    def coeff_fn(TH):
-        a1, a2, f1, var, nu, mu = (TH[:, i] for i in range(6))
-        kern = approx(
+    def kernel_fn(TH):
+        a1, a2, f1, var = (TH[:, i] for i in range(4))
+        return approx(
             SingleBendingPowerLaw(a1, f1, a2), f_min, f_max,
             n_components, var, S_low, S_high, basis_function=basis_function,
             is_integrated_power=is_integrated_power,
         )
-        a, b, c, d = kern.coefficients()
-        if use_c:
-            c_off = TH[:, 6:7]
-            yv = torch.log(yy - c_off)
-            s2 = nu[:, None] * ee**2 / (yy - c_off) ** 2
-        else:
-            yv = yn.expand(TH.shape[0], -1)
-            s2 = nu[:, None] * ee**2 / yy**2
-        return a, b, c, d, yv - mu[:, None], s2
+
+    def noise_fn(TH, y, e):
+        scale = (y - TH[:, 6:7]) if use_c else y
+        return TH[:, 4:5] * e**2 / scale**2
+
+    def coeff_fn(TH):
+        a, b, c, d = kernel_fn(TH).coefficients()
+        yv = torch.log(yy - TH[:, 6:7]) if use_c else yn.expand(TH.shape[0], -1)
+        return a, b, c, d, yv - TH[:, 5:6], noise_fn(TH, yy, ee)
 
     return _spec(lc, PriorSet(items), names,
                  {"psd": ["α₁", "f₁", "α₂"], "norm": "variance", "scale_err": "ν", "mean": "μ",
                   **({"log_transform": "c"} if use_c else {})},
-                 coeff_fn)
+                 coeff_fn, _gp_model(lc, kernel_fn, lambda TH: TH[:, 5:6], noise_fn),
+                 SingleBendingPowerLaw)
 
 
 def double_bending_model(
@@ -280,19 +302,25 @@ def double_bending_model(
     ])
     yn = torch.log(lc.y)
 
-    def coeff_fn(TH):
-        a1, a2, a3, f1, f2, var, nu, mu = (TH[:, i] for i in range(8))
-        kern = approx(
+    def kernel_fn(TH):
+        a1, a2, a3, f1, f2, var = (TH[:, i] for i in range(6))
+        return approx(
             DoubleBendingPowerLaw(a1, f1, a2, f2, a3), f_min, f_max,
             n_components, var, basis_function=basis_function,
         )
-        a, b, c, d = kern.coefficients()
-        return a, b, c, d, yn - mu[:, None], nu[:, None] * lc.yerr**2 / lc.y**2
+
+    def noise_fn(TH, y, e):
+        return TH[:, 6:7] * e**2 / y**2
+
+    def coeff_fn(TH):
+        a, b, c, d = kernel_fn(TH).coefficients()
+        return a, b, c, d, yn - TH[:, 7:8], noise_fn(TH, lc.y, lc.yerr)
 
     return _spec(lc, prior, ["α₁", "α₂", "α₃", "f₁", "f₂", "variance", "ν", "μ"],
                  {"psd": ["α₁", "f₁", "α₂", "f₂", "α₃"], "norm": "variance",
                   "scale_err": "ν", "mean": "μ"},
-                 coeff_fn)
+                 coeff_fn, _gp_model(lc, kernel_fn, lambda TH: TH[:, 7:8], noise_fn),
+                 DoubleBendingPowerLaw)
 
 
 def periodic_rednoise_model(
@@ -327,24 +355,29 @@ def periodic_rednoise_model(
         ("T0", Uniform(0.0, T_span)),
     ])
 
-    def mean_fn(x, A, phi, T0, mu):
-        return A * torch.sin(2.0 * math.pi * x / T0 + phi) + mu
-
-    def coeff_fn(TH):
-        a1, a2, f1, var, nu, mu, A, phi, T0 = (TH[:, i] for i in range(9))
-        kern = approx(
+    def kernel_fn(TH):
+        a1, a2, f1, var = (TH[:, i] for i in range(4))
+        return approx(
             SingleBendingPowerLaw(a1, f1, a2), f_min, f_max,
             n_components, var, basis_function=basis_function,
         )
-        a, b, c, d = kern.coefficients()
-        A, phi, T0, mu = (v[:, None] for v in (A, phi, T0, mu))
-        m = _mean_vector(CustomMean(lambda x: mean_fn(x, A, phi, T0, mu)), lc.t)
-        return a, b, c, d, lc.y - m, nu[:, None] * lc.yerr**2
+
+    def mean(TH):
+        """The sinusoidal CustomMean of each row: (B, N) on an (N,) grid."""
+        mu, A, phi, T0 = (TH[:, i:i + 1] for i in range(5, 9))
+        return CustomMean(lambda x: A * torch.sin(2.0 * math.pi * x / T0 + phi) + mu)
+
+    def noise_fn(TH, y, e):
+        return TH[:, 4:5] * e**2
+
+    def coeff_fn(TH):
+        a, b, c, d = kernel_fn(TH).coefficients()
+        return a, b, c, d, lc.y - _mean_vector(mean(TH), lc.t), noise_fn(TH, lc.y, lc.yerr)
 
     return _spec(lc, prior, ["α₁", "α₂", "f₁", "variance", "ν", "μ", "A", "ϕ", "T₀"],
                  {"psd": ["α₁", "f₁", "α₂"], "norm": "variance", "scale_err": "ν",
                   "mean": ["A", "ϕ", "T₀", "μ"]},
-                 coeff_fn)
+                 coeff_fn, _gp_model(lc, kernel_fn, mean, noise_fn), SingleBendingPowerLaw)
 
 
 def carma_model(
@@ -421,30 +454,35 @@ def carma_model(
             i += 1
         return re_l, im_l, i
 
-    def coeff_fn(TH):
+    i_var = n_ar + n_ma  # the columns of variance, nu, mu and c
+
+    def kernel_fn(TH):
         ar_re, ar_im, i = _roots(TH, 0, p)
-        ma_re, ma_im, i = _roots(TH, i, q)
-        var, nu, mu = TH[:, i], TH[:, i + 1], TH[:, i + 2]
+        ma_re, ma_im, _ = _roots(TH, i, q)
         if q > 0:
             beta = poly_from_conjugate_pairs(
                 ma_re[0:2 * (q // 2):2], ma_im[0:2 * (q // 2):2],
                 [ma_re[q - 1]] if q % 2 == 1 else [])
         else:
             beta = TH.new_ones(1)
-        a, b, cc, d = carma_celerite_coefs_real(p, ar_re, ar_im, beta, norm=var)
-        if use_c:
-            c_off = TH[:, i + 3:i + 4]
-            yv = torch.log(yy - c_off)
-            s2 = nu[:, None] * ee**2 / (yy - c_off) ** 2
-        else:
-            yv = yn
-            s2 = nu[:, None] * ee**2 / yy**2
-        return a, b, cc, d, yv - mu[:, None], s2
+        return CeleriteKernel(*carma_celerite_coefs_real(p, ar_re, ar_im, beta,
+                                                         norm=TH[:, i_var]))
+
+    def noise_fn(TH, y, e):
+        scale = (y - TH[:, i_var + 3:i_var + 4]) if use_c else y
+        return TH[:, i_var + 1:i_var + 2] * e**2 / scale**2
+
+    def coeff_fn(TH):
+        a, b, cc, d = kernel_fn(TH).coefficients()
+        yv = torch.log(yy - TH[:, i_var + 3:i_var + 4]) if use_c else yn
+        return a, b, cc, d, yv - TH[:, i_var + 2:i_var + 3], noise_fn(TH, yy, ee)
 
     return _spec(lc, PriorSet(items), names,
                  {"psd": names[: n_ar + n_ma], "norm": "variance", "scale_err": "ν",
                   "mean": "μ", **({"log_transform": "c"} if use_c else {})},
-                 coeff_fn, carma_pq=(p, q))
+                 coeff_fn, _gp_model(lc, kernel_fn, lambda TH: TH[:, i_var + 2:i_var + 3],
+                                     noise_fn),
+                 None, carma_pq=(p, q))
 
 
 # final per-sample likelihood sweeps process at most this many samples

@@ -29,6 +29,7 @@ __all__ = [
     "psd_decomposition",
     "get_approx_coefficients",
     "approx",
+    "approximated_psd",
     "integral_sho",
     "integral_drwcelerite",
     "integral_celerite",
@@ -89,6 +90,36 @@ def get_approx_coefficients(
     matrix = spectral_matrix(points, basis_function)
     p = psd_model(points)
     return psd_decomposition(p / p[..., :1], matrix)
+
+
+def approximated_psd(
+    f,
+    psd_model: PowerSpectralDensity,
+    f0,
+    fM,
+    n_components: int = 20,
+    norm=1.0,
+    basis_function: str = "SHO",
+    individual: bool = False,
+):
+    """The basis-function approximation of ``psd_model`` evaluated at the
+    frequencies ``f`` (F,): (..., F), or its terms (..., F, J) with
+    ``individual`` (reference src/psd.jl:152-185). The model's parameters
+    and ``norm`` are scalars or (B,) tensors, one approximation per row,
+    in the dtype and on the device of the first parameter tensor."""
+    like = _param_like(psd_model, norm)
+    dtype, device = like.dtype, like.device
+    points = spectral_grid(n_components, f0, fM, dtype, device)
+    amplitudes = get_approx_coefficients(psd_model, f0, fM, n_components=n_components,
+                                         basis_function=basis_function, dtype=dtype,
+                                         device=device)
+    p = _basis_power(basis_function)
+    f = torch.as_tensor(f, dtype=dtype, device=device)
+    norm = torch.as_tensor(norm, dtype=dtype, device=device)[..., None, None]
+    comps = amplitudes[..., None, :] * norm / (1.0 + (f[..., None] / points) ** p)
+    if individual:
+        return comps
+    return torch.sum(comps, dim=-1)
 
 
 # --------------------------------------------------------------------------

@@ -6,19 +6,29 @@ log-likelihood ``logl``: Python loops over N on (..., R, R) tensors,
 batched over leading chain axes. Slow but exact, and differentiable by
 autograd, which makes them the oracle the adjoint kernels are tested
 against; ``logl_masked`` is the ragged multi-dataset oracle.
-simulate/predict come with the GP object API.
+
+The functions on a :class:`~pioran_tpu_torch.models.kernels.CeleriteKernel`
+with ``(..., J)`` coefficients serve the GP object API: ``log_likelihood``
+(the kernels K1, or K3/K4 under a gradient, on CUDA tensors; their plain
+versions on CPU tensors), ``simulate`` (prior draws), and the posterior
+mean ``predict_matmul`` and ``predict``, whose solve z = K^{-1} r runs
+the adjoint pair K3/K4 on CUDA tensors and the three-scan solve on CPU
+tensors. simulate's and predict's own sweeps are loops over N in plain
+PyTorch on either device: none of them is a TPU kernel.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from . import direct as _direct
+
 __all__ = ["CeleriteUV", "exp_neg", "build_uv", "stable_sum",
-           "celerite_factor_solve", "logl", "logl_masked"]
+           "celerite_factor_solve", "logl", "logl_masked", "log_likelihood",
+           "simulate", "predict_matmul", "predict"]
 
 
 class CeleriteUV(NamedTuple):
@@ -174,6 +184,12 @@ def logl(a, b, c, d, t, y, sigma2, dt=None):
     -logdetD/2 - N log(2 pi)/2 - y^T K^{-1} y / 2, and -inf unless every
     D_n > 0 and the value is finite."""
     z, D, _, logdetD, _ = celerite_factor_solve(a, b, c, d, t, y, sigma2, dt=dt)
+    return _logl_from_solve(y, z, D, logdetD)
+
+
+def _logl_from_solve(y, z, D, logdetD):
+    """The log-likelihood from the three-scan solve's outputs, -inf
+    unless every D_n > 0 and the value is finite."""
     N = y.shape[-1]
     ll = -0.5 * logdetD - 0.5 * N * math.log(2.0 * math.pi) - 0.5 * stable_sum(y * z)
     ok = torch.all(D > 0, dim=-1) & torch.isfinite(ll)
@@ -201,3 +217,158 @@ def logl_masked(a, b, c, d, t, y, sigma2, n_valid, dt=None):
     ll = -0.5 * (logdet + quad + nv * math.log(2.0 * math.pi))
     ok = torch.all(torch.where(live, D, torch.ones_like(D)) > 0, dim=-1) & torch.isfinite(ll)
     return torch.where(ok, ll, torch.full_like(ll, -math.inf))
+
+
+# ---------------------------------------------------------------------------
+# The GP object API's operations on a CeleriteKernel with (..., J) coefficients
+# ---------------------------------------------------------------------------
+
+
+def _batched(kernel, *rows):
+    """(batch shape, coefficients (B, J), rows (B, N)): the kernel's
+    leading axes and those of each (..., N) row tensor broadcast together
+    and flattened to B rows (B = 1 for an unbatched problem)."""
+    coefs = kernel.coefficients()
+    J = coefs[0].shape[-1]
+    batch = torch.broadcast_shapes(coefs[0].shape[:-1], *(x.shape[:-1] for x in rows))
+    flat = lambda x, n: x.expand(batch + (n,)).reshape(-1, n)  # noqa: E731
+    return (batch, [flat(x, J) for x in coefs], [flat(x, x.shape[-1]) for x in rows])
+
+
+def log_likelihood(kernel, t, y, sigma2, dt=None):
+    """Log-likelihood (...,) of ``y`` (..., N) under the kernel's
+    (..., J) coefficients, on the grid ``t`` (N,) with noise variances
+    ``sigma2`` (..., N) (reference celerite_solver.jl:262-294).
+
+    Runs ``cuda_celerite.batched_loglike``: on CUDA tensors the
+    hand-written kernel K1, or K3 and K4 when an input requires a
+    gradient; on CPU tensors their plain versions. ``dt`` (N-1,) are
+    host-f64 spacings. -inf where the factorisation is not positive
+    definite, with a zero gradient there.
+    """
+    from .cuda_celerite import batched_loglike  # it imports this module
+
+    batch, (a, b, c, d), (y, sigma2) = _batched(kernel, y, sigma2)
+    return batched_loglike(a, b, c, d, t, y, sigma2, dt).reshape(batch)
+
+
+def _solve_adjoint(a, b, c, d, t, r, sigma2, dt=None):
+    """(z, ok): z = K^{-1} r (B, N) from the likelihood's adjoint pair.
+    The cotangent of y under a unit cotangent of the log-likelihood is
+    -K^{-1} y exactly, so z = -ȳ of K4 after K3 (their plain versions on
+    CPU tensors). ``ok`` (B,) marks the rows whose log-likelihood is
+    finite; z means nothing on the others."""
+    from .cuda_celerite_vjp import bwd, fwd_aug  # it imports this module
+
+    ll, residuals = fwd_aug(a, b, c, d, t, r, sigma2, dt)
+    ybar = bwd(a, b, c, d, t, r, sigma2, residuals, torch.ones_like(ll), dt)[5]
+    return -ybar, torch.isfinite(ll)
+
+
+def _solve(kernel, t, r, sigma2, dt=None):
+    """z = K^{-1} r, (..., N): on CUDA tensors by the adjoint kernels
+    K3/K4 (:func:`_solve_adjoint`, no gradient), on CPU tensors by
+    :func:`celerite_factor_solve`. NaN on the rows whose log-likelihood
+    is -inf (the factorisation is not positive definite there)."""
+    batch, (a, b, c, d), (r, sigma2) = _batched(kernel, r, sigma2)
+    if a.is_cuda:
+        z, ok = _solve_adjoint(a, b, c, d, t, r, sigma2, dt)
+    else:
+        z, D, _, logdetD, _ = celerite_factor_solve(a, b, c, d, t, r, sigma2, dt=dt)
+        ok = torch.isfinite(_logl_from_solve(r, z, D, logdetD))
+    z = torch.where(ok[:, None], z, torch.full_like(z, math.nan))
+    return z.reshape(batch + z.shape[-1:])
+
+
+def _simulate_from_normals(q, kernel, t, sigma2, dt=None):
+    """:func:`simulate` with its standard normals ``q`` (..., N) given."""
+    a, b, c, d = kernel.coefficients()
+    U, V, phi = build_uv(a, b, c, d, t, dt=dt)
+    D, W = _factor(U, V, phi, sigma2, torch.sum(a, dim=-1))
+    sdq = torch.sqrt(torch.clamp(D, min=0.0)) * q
+    f = sdq.new_zeros(torch.broadcast_shapes(sdq.shape[:-1], U.shape[:-2]) + U.shape[-1:])
+    out = [sdq[..., 0].expand(f.shape[:-1])]
+    for n in range(1, t.shape[0]):
+        f = phi[..., n, :] * (f + W[..., n - 1, :] * sdq[..., n - 1, None])
+        out.append(torch.sum(U[..., n, :] * f, dim=-1) + sdq[..., n])
+    return torch.stack(out, dim=-1)
+
+
+def simulate(generator, kernel, t, sigma2, dt=None):
+    """Prior draws (..., N) in O(N R) from the LDL^T factors, one per
+    leading index of the kernel and ``sigma2``:
+
+    y_1 = sqrt(D_1) q_1;  y_n = U_n . f_n + sqrt(D_n) q_n with
+    f_n = phi_{n-1} o (f_{n-1} + W_{n-1} sqrt(D_{n-1}) q_{n-1})
+
+    (reference celerite_solver.jl:515-549), q standard normals from the
+    ``torch.Generator`` ``generator`` (on t's device). ``dt`` (N-1,) are
+    host-f64 spacings. A loop over N in plain PyTorch on either device.
+    """
+    batch = torch.broadcast_shapes(kernel.a.shape[:-1], sigma2.shape[:-1])
+    q = torch.randn(batch + t.shape[-1:], generator=generator, dtype=t.dtype,
+                    device=t.device)
+    return _simulate_from_normals(q, kernel, t, sigma2, dt)
+
+
+def predict_matmul(kernel, tau, t, y, sigma2, dt=None):
+    """Posterior mean (..., M) at ``tau`` (M,): the solve z = K^{-1} y
+    (K3/K4 on CUDA tensors), then the (..., M, N) x (..., N) product
+    with the cross-covariance K(tau, t). NaN on rows whose
+    log-likelihood is -inf. For very long series :func:`predict` gives
+    the same in O((N + M) R)."""
+    z = _solve(kernel, t, y, sigma2, dt)
+    Kcross = _direct.covariance_matrix(kernel, tau, t)
+    return (Kcross @ z[..., None])[..., 0]
+
+
+def predict(kernel, tau, t, y, sigma2, dt=None):
+    """Posterior mean (..., M) at ``tau`` (M,) in O((N + M) R) by gated
+    forward and backward sweeps (reference celerite_solver.jl:363-483).
+
+    After the solve z = K^{-1} y (as in :func:`predict_matmul`), a
+    forward sweep accumulates the decayed statistic of the data points
+    with t_n <= tau_m and a backward sweep that of those with
+    t_n > tau_m; each target point reads both at its ``searchsorted``
+    neighbours. ``dt`` (N-1,) host-f64 spacings feed the solve and the
+    sweeps' decays.
+    """
+    a, b, c, d = kernel.coefficients()
+    z = _solve(kernel, t, y, sigma2, dt)
+    N = t.shape[0]
+    dt_arr = torch.diff(t) if dt is None else torch.as_tensor(dt, device=t.device).to(t.dtype)
+    zero = dt_arr.new_zeros(1)
+
+    # rows of the sweeps: Q_n = Q_{n -/+ 1} e_n + z_n x_n, (..., N, 2J)
+    co, si = torch.cos(t[:, None] * d[..., None, :]), torch.sin(t[:, None] * d[..., None, :])
+    a_, b_ = a[..., None, :], b[..., None, :]
+    zc = z[..., :, None]
+    xf = torch.cat([zc * co, zc * si], dim=-1)
+    xb = torch.cat([zc * (a_ * co + b_ * si), zc * (a_ * si - b_ * co)], dim=-1)
+    c2 = torch.cat([c, c], dim=-1)[..., None, :]
+    ef = exp_neg(c2 * torch.cat([zero, dt_arr])[:, None])
+    eb = exp_neg(c2 * torch.cat([dt_arr, zero])[:, None])
+    xf, xb, ef, eb = torch.broadcast_tensors(xf, xb, ef, eb)
+    Qf, Qb = [xf[..., 0, :]], [xb[..., N - 1, :]]
+    for n in range(1, N):
+        Qf.append(torch.addcmul(xf[..., n, :], Qf[-1], ef[..., n, :]))
+        Qb.append(torch.addcmul(xb[..., N - 1 - n, :], Qb[-1], eb[..., N - 1 - n, :]))
+    Qf, Qb = torch.stack(Qf, dim=-2), torch.stack(Qb[::-1], dim=-2)
+
+    # combine per target point: the last data point at or before tau_m
+    # and the first after it
+    n0 = torch.searchsorted(t.contiguous(), tau, right=True)
+    il, ir = torch.clamp(n0 - 1, 0, N - 1), torch.clamp(n0, 0, N - 1)
+    J = a.shape[-1]
+    cm, sm = torch.cos(tau[:, None] * d[..., None, :]), torch.sin(tau[:, None] * d[..., None, :])
+    c_ = c[..., None, :]
+    # clamp: with no left point tau_m - t_0 < 0 and the decay would overflow
+    dl = exp_neg(c_ * torch.clamp(tau - t[il], min=0.0)[:, None])
+    dr = exp_neg(c_ * torch.clamp(t[ir] - tau, min=0.0)[:, None])
+    Ql, Qr = Qf[..., il, :], Qb[..., ir, :]
+    mu_left = torch.sum(dl * (Ql[..., :J] * (a_ * cm + b_ * sm)
+                              + Ql[..., J:] * (a_ * sm - b_ * cm)), dim=-1)
+    mu_right = torch.sum(dr * (Qr[..., :J] * cm + Qr[..., J:] * sm), dim=-1)
+    zero_m = torch.zeros_like(mu_left)
+    return (torch.where(n0 > 0, mu_left, zero_m)
+            + torch.where(n0 < N, mu_right, zero_m))

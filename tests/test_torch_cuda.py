@@ -598,3 +598,124 @@ def test_tables_wrapper_rejects_on_card(card, monkeypatch):
         cuda_celerite.loglike_from_tables(wide, wide, wide, y, s2, a.sum(1))
     with pytest.raises(ValueError, match="no gradient"):
         cuda_celerite.batched_loglike_tables(a.requires_grad_(True), b, c, d, t, y, s2)
+
+
+# ---------------------------------------------------------------------------
+# the GP object API and the post-fit diagnostics on the card
+# ---------------------------------------------------------------------------
+
+
+def _gp_problem(B, J, N, seed):
+    """(a, b, c, d) (B, J) with a c > b d term by term (positive
+    definite), sorted t (N,), y, sigma2 (B, N); row 0 made not positive
+    definite."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.1, 1.0, (B, J))
+    b = 0.1 * a * rng.uniform(0.0, 1.0, (B, J))
+    c = rng.uniform(0.05, 0.5, (B, J))
+    d = c * rng.uniform(0.0, 1.0, (B, J))
+    t = np.sort(rng.uniform(0.0, 80.0, N))
+    y = rng.normal(size=(B, N))
+    s2 = rng.uniform(0.05, 0.2, (B, N))
+    a[0] = -50.0 * a[0]
+    return a, b, c, d, t, y, s2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
+def test_gp_logpdf_runs_k1_on_card(card, dtype, tol):
+    """ConditionedGP.logpdf on CUDA tensors is one K1 launch and equals
+    the CPU's plain loop (f64 relative, f32 in nats); row 0 is -inf."""
+    from pioran_tpu_torch.convert import gp_from_numpy
+
+    a, b, c, d, t, y, s2 = _gp_problem(6, 20, 150, seed=21)
+    fx = gp_from_numpy(a, b, c, d, t, s2, mean=0.1, device=card, dtype=dtype)
+    before = cuda_celerite.LAUNCHES
+    lp = fx.logpdf(torch.as_tensor(y, dtype=dtype, device=card))
+    assert cuda_celerite.LAUNCHES == before + 1
+    ref = gp_from_numpy(a, b, c, d, t, s2, mean=0.1, device="cpu").logpdf(torch.as_tensor(y))
+    lp = lp.double().cpu()
+    assert bool(torch.isneginf(lp[0])) and bool(torch.isneginf(ref[0]))
+    err = (lp[1:] - ref[1:]).abs()
+    if dtype == torch.float64:
+        err = err / ref[1:].abs()
+    assert float(err.max()) <= tol
+
+
+@pytest.mark.cuda
+def test_posterior_solve_runs_k3k4_on_card(card, monkeypatch):
+    """The posterior solve on CUDA tensors: z = -ȳ of one K3 and one K4
+    launch, never the plain scans; it equals the three-scan solve run on
+    the CPU to 1e-9 in 2-norm per row, NaN on the -inf row; the
+    posterior mean (both methods) equals the dense predictor to 1e-8."""
+    from pioran_tpu_torch.convert import gp_from_numpy
+    from pioran_tpu_torch.models.gp import posterior
+    from pioran_tpu_torch.ops import celerite as cel, cuda_celerite_vjp as vjp, direct
+
+    a, b, c, d, t, y, s2 = _gp_problem(5, 20, 160, seed=22)
+    z_ref = cel.celerite_factor_solve(*(torch.as_tensor(x) for x in (a, b, c, d, t, y, s2)))[0]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain loop ran on CUDA tensors")
+
+    for name in ("celerite_factor_solve", "_factor", "_forward_sub"):
+        monkeypatch.setattr(cel, name, refuse)
+    fx = gp_from_numpy(a, b, c, d, t, s2, device=card)
+    ty = torch.as_tensor(y, device=card)
+    before = (vjp.FWD_AUG_LAUNCHES, vjp.BWD_LAUNCHES)
+    z = cel._solve(fx.gp.kernel, fx.t, ty, fx.sigma2).cpu()
+    assert (vjp.FWD_AUG_LAUNCHES, vjp.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isnan(z[0]).all())
+    assert float((torch.linalg.vector_norm(z[1:] - z_ref[1:], dim=-1)
+                  / torch.linalg.vector_norm(z_ref[1:], dim=-1)).max()) <= 1e-9
+    tau = torch.linspace(-5.0, 85.0, 200, dtype=torch.float64, device=card)
+    keep = slice(1, None)
+    post = posterior(gp_from_numpy(a[keep], b[keep], c[keep], d[keep], t, s2[keep],
+                                   device=card), ty[keep])
+    ref = direct.predict_direct(post.fx.gp.kernel, tau, post.fx.t, post.y, post.fx.sigma2)
+    for method in ("matmul", "scan"):
+        mu = post.mean(tau, method=method)
+        assert float((torch.linalg.vector_norm(mu - ref, dim=-1)
+                      / torch.linalg.vector_norm(ref, dim=-1)).max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_posterior_predict_checks_on_card(card, tmp_path):
+    """run_posterior_predict_checks on CUDA tensors without figures: the
+    text artifacts, finite, K3/K4 launched by the time-series check."""
+    import os
+
+    from pioran_tpu_torch import ScalableGP, SingleBendingPowerLaw, approx
+    from pioran_tpu_torch.diagnostics import run_posterior_predict_checks
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+
+    rng = np.random.default_rng(23)
+    t = np.sort(rng.uniform(0.0, 200.0, 90))
+    y = np.exp(rng.normal(0.0, 0.3, 90))
+    yerr = 0.05 * y
+    P = 16
+    samples = np.column_stack([rng.uniform(0.3, 1.0, P), 10 ** rng.uniform(-2.0, -1.5, P),
+                               rng.uniform(2.5, 3.2, P), 10 ** rng.uniform(-1.8, -1.2, P),
+                               rng.uniform(0.8, 1.3, P), rng.normal(0.0, 0.05, P)])
+    f_min, f_max = 1.0 / (t[-1] - t[0]), 1.0 / np.min(np.diff(t)) / 2.0
+
+    def gp_model(tt, yy, ee, params):
+        kern = approx(SingleBendingPowerLaw(params[:, 0], params[:, 1], params[:, 2]),
+                      f_min, f_max, 20, params[:, 3])
+        return ScalableGP(params[:, 5:6], kern)(tt, params[:, 4:5] * ee**2 / yy**2)
+
+    before = vjp.BWD_LAUNCHES
+    path = str(tmp_path) + "/"
+    run_posterior_predict_checks(
+        samples, ["a1", "f1", "a2", "variance", "nu", "mu"],
+        {"psd": ["a1", "f1", "a2"], "norm": "variance", "scale_err": "nu", "mean": "mu"},
+        t, y, yerr, SingleBendingPowerLaw, gp_model, True, n_samples=P, path=path,
+        generator=torch.Generator(device=card).manual_seed(0), make_figures=False,
+        device=card)
+    assert vjp.BWD_LAUNCHES > before
+    for name in ("psd_ppc_data.txt", "psd_noise_levels.txt", "lsp_ppc_data.txt",
+                 "binned_lsp_data.txt", "ppc_timeseries_quantiles.txt",
+                 "ppc_residuals_quantiles.txt", "ppc_residuals_mean.txt", "ppc_t_pred.txt",
+                 "ppc_residuals_acvf.txt"):
+        assert np.all(np.isfinite(np.loadtxt(os.path.join(path, name)))), name
+    assert np.loadtxt(os.path.join(path, "psd_ppc_data.txt")).shape == (11, 1000)
