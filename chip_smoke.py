@@ -19,7 +19,7 @@ seeded by ADVI with a dense metric (``run_inference(sampler="chees")``,
 512 chains, 500 + 1800 iterations, gated against the importance-sampling
 referee and on split-r̂); then the multi-dataset path on 16 ragged light
 curves: a no-gradient sweep of ``batched_loglike_multi`` (K2) and
-``run_inference_many`` (64 chains each from prior draws, 500 + 500
+``run_inference_many`` (64 chains each from prior draws, 150 + 150
 iterations, per-lane K3/K4; every dataset's mu gated, dataset 0, the
 reference's subset, reported against the referee); then K0 through its
 entry point ``batched_loglike_tables`` (ten flagship sweeps at B = 4096),
@@ -40,8 +40,23 @@ objects' logpdf at the flagship point (K1), its gradient and the
 posterior solve (K3/K4), the posterior mean and covariance against the
 dense predictors, prior draws, and ``run_posterior_predict_checks`` on
 the SMC posterior (without figures: the card's machine has no
-matplotlib).
+matplotlib). Then checkpoint and resume: flagship SMC and NS through
+``run_inference(resume=True)``, resumed from a mid-run checkpoint and
+gated bit-equal to the uninterrupted run; and the multi-device code at
+world size 1 on an in-process NCCL group: sharded NS and ChEES against
+their unsharded runs, sharded SMC against the evidence gate, sharded
+NUTS with its pooled mass.
 Between them it checks the flagship gradients and the N = 2^16 gradient.
+
+The phases run in this order: the build, the kernel checks and timings
+(2-4, 6-8, 10, 11, 13), SMC, the post-fit path, resume and the
+multi-device code (14, 19-21); then phase 9, the ChEES fit, starts in a
+child process of this script (``--only-chees``) and runs on the same card
+while this process runs NS, the multi-dataset run, NUTS and the other
+builders (5, 12, 15-18). The host-bound samplers then share the card and
+the host, so those phases' walls are not those of a run alone; with
+``--serial`` (or on a card whose compute mode is not Default) phase 9 runs
+in this process at that point and every phase runs alone.
 Each phase prints its lines; any failure exits non-zero before the result
 lines. The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -92,7 +107,10 @@ CHEES = dict(num_chains=512, num_warmup=500, num_samples=1800, hmc_max_leapfrogs
 MULTI_BATCHES = (1024, 4096, 1000)  # the run_inference_many batch, large, ragged edge
 ADJ_MULTI_BATCHES = (1024, 7)      # the run_inference_many batch, ragged edge
 MANY_D = 16                         # datasets of the multi-dataset run
-MANY = dict(num_chains=64, num_warmup=500, num_samples=500, max_leapfrogs=128)  # JAX defaults
+# 64 chains (the JAX default) at 150 + 150 of the JAX default's 500 + 500
+# iterations, for the script's time limit: its gates (finite draws, every
+# mu within 2.0 of its log-mean) do not depend on the depth
+MANY = dict(num_chains=64, num_warmup=150, num_samples=150, max_leapfrogs=128)
 PATH_A_SWEEPS = 10                  # no-gradient K2 sweeps over the run's batch
 TABLES_BATCHES = (128, 4096, 1000, 1024)  # K0: NS sweep, final sweep, ragged edge, SMC sweep
 TABLES_TIMED = (128, 1024, 4096)
@@ -101,8 +119,11 @@ SMC_LOGZ_TOL = 1.0                  # examples/tpu_parity.py's logz_tol for "sin
 SMC = dict(num_particles=1024, num_moves=12)  # the committed parity run's settings
 # 16 chains, the JAX default. Its leaves are host-bound: at 80 iterations
 # (67,837 leaves) the whole script took 1129 s of its 1200 s limit on the
-# slowest card host seen; 50 iterations take 45,760 leaves
-NUTS_FLAGSHIP = dict(num_chains=16, num_warmup=30, num_samples=20)
+# slowest card host seen; 50 iterations took 45,760 leaves and 85 s on a
+# fast host; cut again to 16 (its gates, finite draws and the exact
+# leapfrog count, do not depend on the depth; 8 draws a chain are the
+# fewest whose split halves the ESS estimator accepts)
+NUTS_FLAGSHIP = dict(num_chains=16, num_warmup=8, num_samples=8)
 NUTS_GAUSSIAN = dict(num_warmup=150, num_samples=250)  # halved from 300 + 500 with CHEES
 # the other model builders: dataset, light curve, builder, its keywords,
 # stored order -> spec order of the stored ML point (None: no reference
@@ -120,6 +141,15 @@ BUILDERS = {
 BUILDER_BATCHES = (1024, 1000)      # the SMC sweep, ragged edge
 SMC_BUILDERS = ("double", "periodic", "carma21")  # the JAX package's parity runs
 PARITY = os.path.join(HERE, "artifacts", "tpu_parity")
+# phases 20-21: NS at 256 live points with two random-walk steps an
+# iteration (the gates are equalities, not the evidence: phase 5 holds
+# that), ChEES at 64 chains with at most 8 leapfrogs a trajectory, NUTS
+# at 16 chains to the end of its first slow window (34 warmup iterations)
+# with trees of depth <= 4
+RESUME_NS = dict(num_particles=256, num_ns_mcmc=2, ns_move="rwm", num_samples=500)
+MD_CHEES = dict(num_chains=64, num_warmup=100, num_samples=100, hmc_max_leapfrogs=8)
+MD_NUTS = dict(num_warmup=34, num_samples=6, max_depth=4)
+MD_NUTS_CHAINS = 16
 # the H100 SXM's published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
@@ -1799,16 +1829,310 @@ def phase_post_fit(dev, out_dir):
     return launches
 
 
+def launch_counts():
+    """K1, K3/K4 and K0 launch counters (the NS, SMC, ChEES and NUTS paths)."""
+    from pioran_tpu_torch.ops import cuda_celerite, cuda_celerite_vjp as vjp
+
+    return {"celerite_fwd": cuda_celerite.LAUNCHES, "celerite_fwd_aug": vjp.FWD_AUG_LAUNCHES,
+            "celerite_bwd": vjp.BWD_LAUNCHES, "celerite_tables": cuda_celerite.TABLES_LAUNCHES}
+
+
+def zero_launch_counts():
+    from pioran_tpu_torch.ops import cuda_celerite, cuda_celerite_vjp as vjp
+
+    cuda_celerite.LAUNCHES = cuda_celerite.TABLES_LAUNCHES = 0
+    vjp.FWD_AUG_LAUNCHES = vjp.BWD_LAUNCHES = 0
+
+
+def add_counts(total, more):
+    return {k: total.get(k, 0) + v for k, v in more.items()}
+
+
+def flagship_f32(dev):
+    from pioran_tpu_torch import single_bending_model
+
+    sub, xbar, va = load_subset()
+    return single_bending_model(sub[:, 0], sub[:, 1], sub[:, 2], xbar, va, device=dev,
+                                dtype=torch.float32)
+
+
+def phase_resume(dev, out_dir):
+    """Phase 20: resume on the card. Flagship SMC (float32, phase 14's 1024
+    particles and 12 MALA moves) and NS (256 live points) through
+    run_inference(log_dir=..., resume=True): the uninterrupted run keeps
+    every checkpoint; a second run starts from a copy of its mid-run
+    checkpoint alone. Gate: the resumed logZ, particles (SMC) and dead
+    buffers (NS) bit-equal to the uninterrupted run's. Also times a
+    checkpoint write of the 1024-particle SMC state. Returns the K1/K3/K4
+    launches of the four runs."""
+    import shutil
+
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    spec = flagship_f32(dev)
+    total = {}
+    for sampler, runner, kw in (("smc", "run_smc_resumable", SMC),
+                                ("ns", "run_ns_resumable", RESUME_NS)):
+        orig, raw, runs = getattr(tinf, runner), [], {}
+
+        def keep_all(*a, _orig=orig, _raw=raw, **k):
+            res = _orig(*a, max_to_keep=10_000, **k)
+            _raw.append(res)
+            return res
+
+        root = os.path.join(out_dir, "resume", sampler)
+        shutil.rmtree(root, ignore_errors=True)
+        setattr(tinf, runner, keep_all)
+        try:
+            walls = []
+            for name in ("full", "mid"):
+                if name == "mid":
+                    ckpts = os.path.join(root, "full", "checkpoints")
+                    steps = sorted(int(n[5:]) for n in os.listdir(ckpts) if n.startswith("step_"))
+                    mid = steps[len(steps) // 2]
+                    os.makedirs(os.path.join(root, "mid", "checkpoints"))
+                    shutil.copy(os.path.join(ckpts, f"step_{mid:08d}"),
+                                os.path.join(root, "mid", "checkpoints"))
+                zero_launch_counts()
+                t0 = time.perf_counter()
+                res = tinf.run_inference(spec, sampler=sampler, log_dir=os.path.join(root, name),
+                                         resume=True, **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                runs[name] = (res, raw.pop(), launch_counts())
+                total = add_counts(total, runs[name][2])
+        finally:
+            setattr(tinf, runner, orig)
+        (full, full_raw, l_full), (resumed, mid_raw, l_mid) = runs["full"], runs["mid"]
+        if sampler == "smc":
+            fields = ("particles", "logZ", "log_evidence_path", "lambdas", "acceptance")
+            what = f"temper_steps={full_raw.num_steps} checkpoints={len(steps)}"
+        else:
+            fields = ("dead_u", "dead_logl", "dead_logw", "logZ", "insert_ranks")
+            what = f"iterations={full_raw.num_iters} checkpoints={len(steps)}"
+        diff = {f: float((getattr(mid_raw, f).double() - getattr(full_raw, f).double())
+                         .nan_to_num(0.0, 0.0, 0.0).abs().max())
+                for f in fields}
+        equal = all(torch.equal(getattr(mid_raw, f), getattr(full_raw, f)) for f in fields)
+        print(f"phase 20 resume {sampler}: {what} resumed_from_step={mid} "
+              f"logz={full['logz']:.6f} resumed_logz={resumed['logz']:.6f} "
+              f"bit_equal={equal} max_abs_diff={diff} wall_full_s={walls[0]:.2f} "
+              f"wall_resumed_s={walls[1]:.2f} launches_full={l_full} launches_resumed={l_mid}")
+        check(equal and resumed["logz"] == full["logz"]
+              and np.array_equal(resumed["samples"], full["samples"]),
+              f"phase 20: the resumed {sampler} run differs from the uninterrupted one: {diff}")
+        check(l_mid["celerite_fwd"] > 0, f"the resumed {sampler} run launched no K1")
+        if sampler == "smc":
+            check(min(l_mid["celerite_fwd_aug"], l_mid["celerite_bwd"]) > 0,
+                  "the resumed SMC run launched no K3/K4")
+            # a checkpoint write of the 1024-particle state, from the card
+            saved, _ = restore_checkpoint(ckpts)
+            state = {"state": {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                               for k, v in saved["state"].items()},
+                     "generator": torch.Generator(device=dev).manual_seed(0)}
+            tmp = os.path.join(root, "timing")
+            ms = []
+            for rep in range(5):
+                t0 = time.perf_counter()
+                path = save_checkpoint(tmp, state, rep)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"phase 20 checkpoint write (SMC state, {SMC['num_particles']} particles, "
+                  f"float32, on the card): ms={np.round(ms, 3).tolist()} "
+                  f"median_ms={float(np.median(ms)):.3f} bytes={os.path.getsize(path)}")
+    print("phase 20 resume: ok")
+    return total
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_multi_device(dev, out_dir):
+    """Phase 21: the multi-device code on the card at world size 1. An
+    in-process NCCL group of one rank and its CUDA mesh; sharded NS (256
+    live points) and ChEES (64 chains, 100 + 100) through
+    run_inference(mesh=) against their unsharded runs with the same seed
+    (an all-reduce over one rank is the identity, so bit-equal); sharded
+    SMC on the flagship (phase 14's particles and moves; random-walk
+    moves, as the JAX package's sharded SMC) against phase 14's evidence
+    gate; sharded NUTS (16 chains from prior draws, to the end of its
+    first slow window) with finite draws and one pooled inverse mass.
+    Each sharded path's K1 or K3/K4 launches are gated. Returns the
+    launches of the sharded runs."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch import parallel as par
+
+    par.initialize_distributed(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                               rank=0, timeout=timedelta(seconds=120))
+    total = {}
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()!r}, not nccl")
+        mesh = par.make_mesh("chains", device_type="cuda")
+        spec = flagship_f32(dev)
+
+        # the collectives the sharded samplers make, by host clock: the
+        # first one sets up the NCCL communicator
+        x, g = torch.zeros(3, device=dev), torch.zeros(128, device=dev)
+        outs = [torch.empty_like(g)]
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+
+        def per_call_us(fn, n=500):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e6
+
+        print(f"phase 21 collectives (NCCL, one rank, host clock): first all_reduce "
+              f"(communicator set-up) {first_ms:.1f} ms; all_reduce of 3 floats "
+              f"{per_call_us(lambda: dist.all_reduce(x)):.1f} us; all_gather of 128 floats "
+              f"{per_call_us(lambda: dist.all_gather(outs, g)):.1f} us a call")
+
+        def run(label, fn, *a, **k):
+            nonlocal total
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            total = add_counts(total, launches) if label.startswith("sharded") else total
+            return out, wall, launches
+
+        for sampler, kw in (("ns", RESUME_NS), ("chees", MD_CHEES)):
+            sh, w_sh, l_sh = run(f"sharded {sampler}", tinf.run_inference, spec,
+                                 sampler=sampler, mesh=mesh, **kw)
+            un, w_un, _ = run(sampler, tinf.run_inference, spec, sampler=sampler, **kw)
+            equal = np.array_equal(sh["samples"], un["samples"])
+            extra = (f"logz={sh['logz']:.6f} unsharded_logz={un['logz']:.6f}" if sampler == "ns"
+                     else f"leapfrogs={sh['ncall'] // kw['num_chains']} "
+                          f"unsharded_leapfrogs={un['ncall'] // kw['num_chains']}")
+            print(f"phase 21 {sampler} on the mesh: {extra} samples_bit_equal={equal} "
+                  f"mesh={sh['mesh']} wall_s={w_sh:.2f} unsharded_wall_s={w_un:.2f} "
+                  f"launches={l_sh}")
+            check(equal and sh.get("logz") == un.get("logz"),
+                  f"phase 21: sharded {sampler} differs from the unsharded run")
+            check(sh["mesh"]["n_devices_sharded"] == 1, f"mesh entry {sh['mesh']}")
+            if sampler == "ns":
+                width = kw["num_particles"] // 8  # n_delete: the width of every sweep
+                check(l_sh["celerite_fwd"] >= sh["ncall"] / width,
+                      f"sharded NS launches {l_sh} < sweeps")
+            else:
+                check(min(l_sh["celerite_fwd_aug"], l_sh["celerite_bwd"])
+                      >= sh["ncall"] // kw["num_chains"], f"sharded ChEES launches {l_sh}")
+
+        res, wall, l_smc = run("sharded smc", tinf.run_inference, spec, sampler="smc",
+                               mesh=mesh, **SMC)
+        print(f"phase 21 SMC on the mesh (random-walk moves): logz={res['logz']:.4f} "
+              f"(gate {REF_LOGZ} +- {SMC_LOGZ_TOL}) temper_steps={res['num_temper_steps']} "
+              f"wall_s={wall:.2f} launches={l_smc}")
+        check(abs(res["logz"] - REF_LOGZ) <= SMC_LOGZ_TOL,
+              f"sharded SMC logZ {res['logz']:.4f} outside {REF_LOGZ} +- {SMC_LOGZ_TOL}")
+        check(l_smc["celerite_fwd"] >= res["num_temper_steps"] * SMC["num_moves"],
+              f"sharded SMC launches {l_smc} < sweeps")
+
+        prior = spec.prior
+        gen = torch.Generator(device=dev).manual_seed(0)
+        z0 = prior.to_unconstrained(prior.sample((MD_NUTS_CHAINS,), generator=gen,
+                                                 dtype=spec.dtype, device=dev))
+        (samples, stats), wall, l_nuts = run("sharded nuts", par.run_nuts_sharded,
+                                             spec.logpost_batch, z0, gen, mesh, "chains",
+                                             **MD_NUTS)
+        inv_mass = stats["inv_mass"]
+        leaves = int(stats["num_leaves"].sum() + stats["warmup_num_leaves"].sum())
+        print(f"phase 21 NUTS on the mesh: chains={MD_NUTS_CHAINS} {MD_NUTS} leaves={leaves} "
+              f"pooled_inv_mass={inv_mass[0].tolist()} wall_s={wall:.2f} launches={l_nuts}")
+        check(bool(torch.isfinite(samples).all()) and samples.shape[:2]
+              == (MD_NUTS_CHAINS, MD_NUTS["num_samples"]), "sharded NUTS draws")
+        check(bool((inv_mass == inv_mass[0]).all()) and not bool((inv_mass == 1.0).all()),
+              "sharded NUTS: the inverse mass is not one pooled estimate")
+        check(min(l_nuts["celerite_fwd_aug"], l_nuts["celerite_bwd"]) >= leaves
+              // MD_NUTS_CHAINS, f"sharded NUTS launches {l_nuts}")
+    finally:
+        dist.destroy_process_group()
+    print("phase 21 multi-device (world size 1, NCCL): ok")
+    return total
+
+
+def card_shared() -> bool:
+    """Whether a second process may use the card: its compute mode is
+    Default (not exclusive to one process, not prohibited)."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"compute mode: {mode}")
+    return mode == "Default"
+
+
+def start_chees(out_dir):
+    """Phase 9 in a child process of this script on the same card (the
+    kernels are already built); its output goes to a file under out_dir."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "phase9.log")
+    with open(path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--only-chees",
+                                 "--out", out_dir], stdout=log, stderr=subprocess.STDOUT,
+                                cwd=HERE)
+    return proc, path
+
+
+def finish_chees(proc, path):
+    """Waits for the child's phase 9, prints its lines and returns its
+    (launches, wall): the last line of its output is that JSON pair."""
+    rc = proc.wait()
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    for line in lines[:-1] if rc == 0 else lines:
+        print(line)
+    check(rc == 0 and bool(lines), f"phase 9 (child process) exited with {rc}")
+    out = json.loads(lines[-1])
+    return out["launches"], out["wall_s"]
+
+
+def only_chees(out_dir) -> int:
+    """The child's side of start_chees: phase 9 alone, then its launches
+    and wall as the last line."""
+    from pioran_tpu_torch import _build
+    from pioran_tpu_torch.config import require_cuda
+
+    dev = require_cuda()
+    _build.load_all(("celerite_fwd", "celerite_adjoint"))
+    t0 = time.perf_counter()
+    launches = phase_chees(dev, out_dir)
+    print(json.dumps({"launches": launches, "wall_s": round(time.perf_counter() - t0, 1)}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build", "chip_smoke"),
                     help="directory for the NS, ChEES and multi-dataset runs' "
                          "ultranest-layout output")
+    ap.add_argument("--serial", action="store_true",
+                    help="run phase 9 in this process, so that every phase runs alone")
+    ap.add_argument("--only-chees", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    if args.only_chees:
+        return only_chees(args.out)
     from pioran_tpu_torch import single_bending_model
 
     t_start = time.perf_counter()
@@ -1828,37 +2152,50 @@ def main(argv=None) -> int:
     f32_err, (k_ms, p_ms) = timed("2", phase_kernel_vs_plain, *specs)
     timed("3", phase_long_n, dev)
     timed("4", phase_likelihood, dev)
-    ns_launches = timed("5", phase_ns, dev, args.out)
     adj_err, timing = timed("6", phase_adjoint_vs_plain, *specs)
     timed("7", phase_flagship_grad, specs[0])
     timed("8", phase_long_n_grad, dev)
-    chees_launches = timed("9", phase_chees, dev, args.out)
     datasets = many_datasets()
     k2_err, (k2_ms, k2_plain_ms, k2_nv) = timed("10", phase_multi_vs_plain, *specs, datasets)
     k2_launches, _ = timed("10a", phase_path_a, datasets, dev)
     multi_err, multi_timing = timed("11", phase_multi_adjoint_vs_plain, *specs, datasets)
-    many_launches = timed("12", phase_many, dev, args.out, datasets)
     k0_launches, k0_err, k0_ms, k0_plain_ms, _ = timed("13", phase_tables, *specs)
     smc_launches = timed("14", phase_smc, dev, args.out)
-    timed("15", phase_nuts_gaussian, dev)
-    nuts_launches = timed("16", phase_nuts_flagship, dev, args.out)
-    timed("17", phase_builders, dev)
-    builder_launches = timed("18", phase_builders_smc, dev, args.out)
     post_launches = timed("19", phase_post_fit, dev, args.out)
+    resume_launches = timed("20", phase_resume, dev, args.out)
+    mesh_launches = timed("21", phase_multi_device, dev, args.out)
+    child = None if args.serial or not card_shared() else start_chees(args.out)
+    try:
+        if child is None:
+            chees_launches = timed("9", phase_chees, dev, args.out)
+        ns_launches = timed("5", phase_ns, dev, args.out)
+        many_launches = timed("12", phase_many, dev, args.out, datasets)
+        timed("15", phase_nuts_gaussian, dev)
+        nuts_launches = timed("16", phase_nuts_flagship, dev, args.out)
+        timed("17", phase_builders, dev)
+        builder_launches = timed("18", phase_builders_smc, dev, args.out)
+        if child is not None:
+            chees_launches, walls["9"] = finish_chees(*child)
+    finally:
+        if child is not None and child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+    overlap = "" if child is None else " (9 in a child process beside 5, 12 and 15-18)"
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t_start:.1f} s; "
-          f"phase wall_s {walls}; "
+          f"phase wall_s{overlap} {walls}; "
           f"launches on the main paths: NS {{'celerite_fwd': {ns_launches}}}, "
           f"ChEES {chees_launches}, multi-dataset no-gradient sweeps "
           f"{{'celerite_fwd_multi': {k2_launches}}}, run_inference_many {many_launches}, "
           f"batched_loglike_tables {{'celerite_tables': {k0_launches}}}, SMC {smc_launches}, "
           f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}, "
-          f"post-fit {post_launches}")
+          f"post-fit {post_launches}, resume {resume_launches}, multi-device {mesh_launches}")
 
     # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
     # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS,
-    # the other builders' SMC, the post-fit path)
+    # the other builders' SMC, the post-fit path, the resumed and the sharded runs)
     t512 = timing[512]
-    paths = (chees_launches, smc_launches, nuts_launches, builder_launches, post_launches)
+    paths = (chees_launches, smc_launches, nuts_launches, builder_launches, post_launches,
+             resume_launches, mesh_launches)
     rows = {
         "celerite_fwd": (ns_launches + sum(p["celerite_fwd"] for p in paths), f32_err, k_ms,
                          p_ms, k1_cost(PHASE2_BATCHES[0])),

@@ -18,8 +18,11 @@ over ragged light curves on the ragged batched likelihood
 ``batched_loglike_multi``, the GP object API (``ScalableGP``,
 ``posterior``: log-likelihoods, prior draws, posterior means and
 covariances, batched over GPs) and the post-fit diagnostics
-(``run_diagnostics``, ``run_posterior_predict_checks``). Entry points
-run on the card unless given ``device="cpu"``.
+(``run_diagnostics``, ``run_posterior_predict_checks``), checkpoint and
+resume of NS and SMC runs (``checkpoint``, ``run_inference(resume=True)``)
+and the multi-GPU particle and chain paths on ``torch.distributed``
+(``parallel``, ``run_inference(mesh=...)``). Entry points run on the
+card unless given ``device="cpu"``.
 """
 
 from .config import require_cuda

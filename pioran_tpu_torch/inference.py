@@ -11,8 +11,10 @@ the JAX package: ``sampler="smc"`` (the default), ``"ns"``, ``"nuts"``,
 the ultranest layout (``chains/equal_weighted_post.txt``,
 ``info/results.json``); and :func:`run_inference_many`, which fits the
 single-bending model to many ragged light curves as one ChEES ensemble.
-The likelihood of a batch of parameter vectors is one batched parameter
--> celerite coefficient map (plain PyTorch: the PSD approximation or
+NS and SMC runs resume from checkpoints (``resume=True``), and every
+sampler but ADVI shards over the ranks of a ``DeviceMesh`` (``mesh=``,
+``parallel/``). The likelihood of a batch of parameter vectors is one
+batched parameter -> celerite coefficient map (plain PyTorch: the PSD approximation or
 CARMA's partial fractions) feeding the CUDA celerite kernels on the card
 (K1 or, for ragged per-chain grids, K2 without a gradient; K3 and K4
 with one), or their plain versions on the CPU.
@@ -29,6 +31,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import DEFAULT_DTYPE, resolve_device
 from .convert import multi_inputs_from_numpy
@@ -49,11 +52,18 @@ from .priors import (
     TwoUniformDependent,
     Uniform,
 )
+from .parallel.mesh import axis_group, axis_size, check_device
+from .parallel.sharded import (
+    run_chees_sharded,
+    run_nuts_sharded,
+    run_smc_sharded,
+    sharded_batched_fn,
+)
 from .samplers.advi import run_advi
 from .samplers.chees import run_chees
-from .samplers.ns import equal_weight_indices, run_ns
+from .samplers.ns import equal_weight_indices, run_ns, run_ns_resumable
 from .samplers.nuts import run_nuts
-from .samplers.smc import run_smc
+from .samplers.smc import run_smc, run_smc_resumable
 from .utils.insertion import insertion_order_test
 from .utils.mcmc_stats import summarize_chains
 
@@ -529,20 +539,30 @@ def advi_seeded_inits(
     return res.mu[None, :] + overdispersion * torch.exp(res.log_sigma)[None, :] * eps
 
 
-def _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc, ns_move, frac_remain):
-    """Nested sampling: (theta draws, the NS entries of the results)."""
+def _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc, ns_move, frac_remain,
+            shard, checkpoint_dir):
+    """Nested sampling: (theta draws, the NS entries of the results). Under
+    a mesh its sweeps fan out over the ranks, ``n_delete`` rounded up to a
+    multiple of their number; with ``checkpoint_dir`` it resumes."""
     prior = spec.prior
 
     def loglike_u_batch(U):
         return spec.loglike_batch(prior.transform(U))
 
     n_delete = max(num_particles // 8, 1)
-    res = run_ns(
-        loglike_u_batch, gen, num_live=num_particles, dim=prior.dim,
-        n_delete=n_delete, num_mcmc=num_ns_mcmc, move=ns_move,
-        max_iters=max(8 * num_particles // n_delete, 400),
-        frac_remain=frac_remain, dtype=spec.dtype,
-    )
+    if shard is not None:
+        # each rank evaluates its slice of every sweep (the analog of
+        # ultranest's MPI likelihood farm)
+        n_delete = -(-n_delete // shard.n) * shard.n
+        loglike_u_batch = sharded_batched_fn(loglike_u_batch, shard.mesh, shard.axis)
+    kw = dict(num_live=num_particles, dim=prior.dim, n_delete=n_delete, num_mcmc=num_ns_mcmc,
+              move=ns_move, max_iters=max(8 * num_particles // n_delete, 400),
+              frac_remain=frac_remain, dtype=spec.dtype)
+    if checkpoint_dir is not None:
+        res = run_ns_resumable(loglike_u_batch, gen, checkpoint_dir,
+                               group=None if shard is None else dist.group.WORLD, **kw)
+    else:
+        res = run_ns(loglike_u_batch, gen, **kw)
     n_eq = max(num_samples * 4, 4000)
     idx = equal_weight_indices(res.dead_logl, res.dead_logw, res.num_dead,
                                n_eq, generator=gen)
@@ -602,13 +622,19 @@ def _mcmc_entries(chains_th, ncall):
 
 
 def _run_chees(spec, gen, num_chains, num_warmup, num_samples, init, mass,
-               hmc_max_leapfrogs):
-    """ChEES-HMC: (theta draws, the MCMC entries of the results)."""
+               hmc_max_leapfrogs, shard):
+    """ChEES-HMC: (theta draws, the MCMC entries of the results). Under a
+    mesh each rank runs its slice of the chains, the adaptation
+    statistics all-reduced."""
     prior = spec.prior
     z0 = _chain_inits(spec, gen, num_chains, init)
-    samples_z, stats = run_chees(
-        spec.logpost_batch, z0, gen, num_warmup=num_warmup,
-        num_samples=num_samples, mass=mass, max_leapfrogs=hmc_max_leapfrogs)
+    kw = dict(num_warmup=num_warmup, num_samples=num_samples, mass=mass,
+              max_leapfrogs=hmc_max_leapfrogs)
+    if shard is not None:
+        samples_z, stats = run_chees_sharded(spec.logpost_batch, z0, gen, shard.mesh,
+                                             shard.axis, **kw)
+    else:
+        samples_z, stats = run_chees(spec.logpost_batch, z0, gen, **kw)
     with torch.no_grad():
         # (S, C, dim) -> (C, S, dim): per-chain draws, in theta space
         chains_th = prior.from_unconstrained(samples_z.transpose(0, 1)).cpu().numpy()
@@ -617,23 +643,31 @@ def _run_chees(spec, gen, num_chains, num_warmup, num_samples, init, mass,
     return theta, _mcmc_entries(chains_th, int(stats["n_leapfrogs"].sum()) * num_chains)
 
 
-def _run_nuts(spec, gen, num_chains, num_warmup, num_samples, init):
+def _run_nuts(spec, gen, num_chains, num_warmup, num_samples, init, shard):
     """NUTS, C chains with per-chain adaptation: (theta draws, chain by
     chain, and the MCMC entries of the results). ``ncall`` is the exact
-    count of leapfrogs (value+gradient evaluations), warmup included."""
+    count of leapfrogs (value+gradient evaluations), warmup included.
+    Under a mesh each rank runs its slice of the chains and the mass
+    estimate is pooled over all of them."""
     prior = spec.prior
     z0 = _chain_inits(spec, gen, num_chains, init)
-    chains_z, stats = run_nuts(spec.logpost_batch, z0, gen, num_warmup=num_warmup,
-                               num_samples=num_samples)
+    kw = dict(num_warmup=num_warmup, num_samples=num_samples)
+    if shard is not None:
+        chains_z, stats = run_nuts_sharded(spec.logpost_batch, z0, gen, shard.mesh,
+                                           shard.axis, **kw)
+    else:
+        chains_z, stats = run_nuts(spec.logpost_batch, z0, gen, **kw)
     with torch.no_grad():
         chains_th = prior.from_unconstrained(chains_z).cpu().numpy()
     ncall = int(stats["num_leaves"].sum()) + int(stats["warmup_num_leaves"].sum())
     return chains_th.reshape(-1, prior.dim), _mcmc_entries(chains_th, ncall)
 
 
-def _run_smc(spec, gen, num_particles, num_moves, smc_move):
+def _run_smc(spec, gen, num_particles, num_moves, smc_move, shard, checkpoint_dir):
     """Adaptive-tempering SMC: (theta draws, the SMC entries of the
-    results)."""
+    results). Under a mesh the particles are sharded over the ranks (the
+    JAX package's sharded SMC: random-walk moves whatever ``smc_move``
+    says); with ``checkpoint_dir`` it resumes."""
     prior = spec.prior
     z0 = prior.to_unconstrained(prior.sample(
         (num_particles,), generator=gen, dtype=spec.dtype, device=spec.device))
@@ -641,8 +675,15 @@ def _run_smc(spec, gen, num_particles, num_moves, smc_move):
     def loglike_z_batch(Z):
         return spec.loglike_batch(prior.from_unconstrained(Z))
 
-    res = run_smc(loglike_z_batch, prior.unconstrained_logpdf, z0, gen,
-                  num_moves=num_moves, move=smc_move)
+    if shard is not None:
+        res = run_smc_sharded(loglike_z_batch, prior.unconstrained_logpdf, z0, gen,
+                              shard.mesh, shard.axis, num_moves=num_moves)
+    elif checkpoint_dir is not None:
+        res = run_smc_resumable(loglike_z_batch, prior.unconstrained_logpdf, z0, gen,
+                                checkpoint_dir, num_moves=num_moves, move=smc_move)
+    else:
+        res = run_smc(loglike_z_batch, prior.unconstrained_logpdf, z0, gen,
+                      num_moves=num_moves, move=smc_move)
     with torch.no_grad():
         theta = prior.from_unconstrained(res.particles).cpu().numpy()
     return theta, {
@@ -650,6 +691,39 @@ def _run_smc(spec, gen, num_particles, num_moves, smc_move):
         "num_temper_steps": int(res.num_steps),
         "ncall": int(res.num_steps) * num_moves * num_particles,
     }
+
+
+class _Shard(NamedTuple):
+    """A run's layout on a mesh: the mesh, the axis (a name or a tuple of
+    names) its batch is sharded over, and the number of ranks along it.
+    Every rank of the process group runs the same call; rank 0 writes
+    files and checkpoints."""
+
+    mesh: object
+    axis: object
+    n: int
+
+
+def _shard_layout(mesh, mesh_axis, device) -> Optional[_Shard]:
+    """The layout of a run on ``mesh`` (None without one). The default
+    axis is every axis of the mesh. Raises unless ``device`` is this
+    rank's device on the mesh."""
+    if mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names)
+    axis = mesh_axis if mesh_axis is not None else (names if len(names) > 1 else names[0])
+    check_device(mesh, device)
+    return _Shard(mesh, axis, axis_size(mesh, axis))
+
+
+def _is_writer(shard: Optional[_Shard]) -> bool:
+    return shard is None or dist.get_rank() == 0
+
+
+def _written(shard: Optional[_Shard]) -> None:
+    """Every rank waits until rank 0 has written the run's files."""
+    if shard is not None:
+        dist.barrier()
 
 
 def _run_advi(spec, gen, num_warmup, num_samples):
@@ -688,6 +762,8 @@ def run_inference(
     init: str = "prior",
     mass: str = "diag",
     hmc_max_leapfrogs: int = 128,
+    mesh=None,
+    mesh_axis=None,
 ) -> Dict:
     """Run SMC, NS, NUTS, ChEES-HMC or ADVI on a model spec and write its
     artifacts.
@@ -717,30 +793,55 @@ def run_inference(
     (theta space), summary moments and the sampler's own entries, with
     the JAX package's keys; with ``log_dir``, writes
     ``chains/equal_weighted_post.txt`` and ``info/results.json``.
-    ``resume=True`` raises ``NotImplementedError`` until checkpointing is
-    ported.
+
+    ``resume=True`` (NS and SMC) checkpoints the run under
+    ``log_dir/checkpoints`` and, called again with the same ``log_dir``,
+    resumes from the last checkpoint; it raises ``ValueError`` without a
+    ``log_dir`` or for another sampler, where the JAX package silently
+    starts a fresh run.
+
+    ``mesh``: a ``torch.distributed`` ``DeviceMesh`` (``parallel``) whose
+    every rank calls this function with the same arguments, the spec on
+    its own device. NS shards its likelihood sweeps (``n_delete``
+    rounded up to a multiple of the ranks), SMC its particles (random-walk
+    moves, no ``resume``), ChEES and NUTS their chains; ADVI ignores the
+    mesh. ``mesh_axis`` names the axes that carry the batch (default:
+    all of them); ``num_particles`` or ``num_chains`` must be divisible
+    by their size. Every rank returns the same results, with a ``mesh``
+    entry; rank 0 writes the files and checkpoints.
     """
-    if resume:
+    if sampler not in ("smc", "ns", "nuts", "chees", "advi"):
+        raise ValueError(
+            f"unknown sampler {sampler!r}; use ns, smc, nuts, chees or advi")
+    if resume and not log_dir:
+        raise ValueError("resume=True needs a log_dir: the checkpoints are written "
+                         "under log_dir/checkpoints")
+    if resume and sampler not in ("ns", "smc"):
+        raise ValueError(f"resume=True resumes NS and SMC runs only, not sampler={sampler!r}")
+    if resume and mesh is not None and sampler == "smc":
         raise NotImplementedError(
-            "run_inference(resume=True) is not ported to pioran_tpu_torch yet: "
-            "it comes with checkpointing (ROADMAP queue 1, step 13)")
+            "resume is not supported for the mesh-sharded SMC; drop mesh= or resume=")
+    shard = _shard_layout(mesh, mesh_axis, spec.device)
+    if shard is not None and sampler != "advi":
+        batch = num_particles if sampler in ("ns", "smc") else num_chains
+        what = "num_particles" if sampler in ("ns", "smc") else "num_chains"
+        if batch % shard.n:
+            raise ValueError(f"{what}={batch} not divisible by the mesh axis size {shard.n}")
+    ckpt = os.path.join(log_dir, "checkpoints") if resume else None
     t0 = time.time()
     gen = torch.Generator(device=spec.device).manual_seed(seed)
     if sampler == "smc":
-        theta, extra = _run_smc(spec, gen, num_particles, num_moves, smc_move)
+        theta, extra = _run_smc(spec, gen, num_particles, num_moves, smc_move, shard, ckpt)
     elif sampler == "ns":
         theta, extra = _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc,
-                               ns_move, frac_remain)
+                               ns_move, frac_remain, shard, ckpt)
     elif sampler == "nuts":
-        theta, extra = _run_nuts(spec, gen, num_chains, num_warmup, num_samples, init)
+        theta, extra = _run_nuts(spec, gen, num_chains, num_warmup, num_samples, init, shard)
     elif sampler == "chees":
         theta, extra = _run_chees(spec, gen, num_chains, num_warmup, num_samples,
-                                  init, mass, hmc_max_leapfrogs)
-    elif sampler == "advi":
-        theta, extra = _run_advi(spec, gen, num_warmup, num_samples)
+                                  init, mass, hmc_max_leapfrogs, shard)
     else:
-        raise ValueError(
-            f"unknown sampler {sampler!r}; use ns, smc, nuts, chees or advi")
+        theta, extra = _run_advi(spec, gen, num_warmup, num_samples)
     elapsed = time.time() - t0
 
     # final per-sample likelihoods, chunked
@@ -760,8 +861,14 @@ def run_inference(
     }
     if "ess" in results and elapsed > 0:
         results["ess_per_s"] = float(results["ess"]) / elapsed
+    if shard is not None:
+        results["mesh"] = {
+            "axes": {name: int(mesh.size(i)) for i, name in enumerate(mesh.mesh_dim_names)},
+            "shard_axes": list(shard.axis) if isinstance(shard.axis, tuple) else str(shard.axis),
+            "n_devices_sharded": shard.n,
+        }
 
-    if log_dir:
+    if log_dir and _is_writer(shard):
         # cap the written posterior at 20k equal-weighted rows
         theta_out = theta
         if theta.shape[0] > 20000:
@@ -769,6 +876,8 @@ def run_inference(
                 theta.shape[0], 20000, replace=False)
             theta_out = theta[np.sort(sel)]
         _write_ultranest(log_dir, spec.names, theta_out, results)
+    if log_dir:
+        _written(shard)
     results["samples"] = theta
     return results
 
@@ -781,7 +890,8 @@ class _ManyModel(NamedTuple):
     theta = (alpha_1, alpha_2, f_1, variance, nu, mu_std), with each
     dataset's mu = xbar[d] + sd5[d] mu_std. ``data`` holds the padded
     (T, DT, Y, E, n_valid) per dataset, as ``convert.multi_inputs_from_numpy``
-    returns them."""
+    returns them. Built with ``lanes``, the dataset of each row this
+    process holds, ``loglike_batch`` takes just those rows."""
 
     prior: PriorSet
     loglike_batch: Callable
@@ -795,7 +905,8 @@ class _ManyModel(NamedTuple):
 
 def _many_model(datasets: Sequence[Tuple], n_components: int = 20,
                 basis_function: str = "SHO", S_low: float = 20.0, S_high: float = 20.0,
-                device=None, dtype: torch.dtype = DEFAULT_DTYPE) -> _ManyModel:
+                device=None, dtype: torch.dtype = DEFAULT_DTYPE,
+                lanes: Optional[torch.Tensor] = None) -> _ManyModel:
     """The model :func:`run_inference_many` samples (see there)."""
     dev = resolve_device(device)
     Ns = [len(ds[0]) for ds in datasets]
@@ -833,7 +944,12 @@ def _many_model(datasets: Sequence[Tuple], n_components: int = 20,
 
     def loglike_batch(TH):
         # every row's own copy of its dataset's arrays
-        rows = torch.repeat_interleave(torch.arange(D, device=dev), TH.shape[0] // D)
+        if lanes is None:
+            rows = torch.repeat_interleave(torch.arange(D, device=dev), TH.shape[0] // D)
+        elif TH.shape[0] != lanes.shape[0]:
+            raise ValueError(f"{TH.shape[0]} rows for a model of {lanes.shape[0]} lanes")
+        else:
+            rows = lanes
         a1, a2, f1, var, nu, mu_std = (TH[:, i] for i in range(6))
         kern = approx(SingleBendingPowerLaw(a1, f1, a2), f_min, f_max, n_components,
                       var, S_low, S_high, basis_function=basis_function)
@@ -893,25 +1009,41 @@ def run_inference_many(
     with ``log_dir``, writes each dataset's ultranest layout under
     ``log_dir/ds{i}/``. Random numbers come from one ``torch.Generator``
     on ``device`` (default: the card) seeded with ``seed``. Only
-    ``sampler="chees"`` exists; ``mesh`` raises ``NotImplementedError``
-    until ``parallel/`` is ported.
+    ``sampler="chees"`` exists.
+
+    ``mesh``: a ``DeviceMesh`` whose every rank calls this function with
+    the same arguments, ``device`` its own. The B chains are sharded
+    over ``mesh_axis``: each rank runs the per-lane kernels on its own
+    slice of the padded lanes, and ChEES's statistics are all-reduced
+    (``parallel.run_chees_sharded``), so the run is the unsharded one up
+    to the order of the reductions. B must be divisible by the axis size.
+    Rank 0 writes the files.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_inference_many(mesh=...) is not ported to pioran_tpu_torch yet: "
-            "the multi-device paths come with parallel/ (ROADMAP queue 1, step 13)")
     if sampler != "chees":
         raise ValueError(f"run_inference_many runs ChEES-HMC only, got sampler={sampler!r}")
-    model = _many_model(datasets, n_components, basis_function, S_low, S_high,
-                        device=device, dtype=dtype)
-    prior = model.prior
     D, C = len(datasets), num_chains
     dev = resolve_device(device)
+    shard = _shard_layout(mesh, mesh_axis, dev)
+    lanes = None
+    if shard is not None:
+        if (D * C) % shard.n:
+            raise ValueError(f"B={D * C} chains not divisible by mesh axis {mesh_axis} "
+                             f"of size {shard.n}")
+        _, r, n = axis_group(mesh, shard.axis)
+        m = D * C // n
+        lanes = torch.arange(r * m, (r + 1) * m, device=dev) // C
+    model = _many_model(datasets, n_components, basis_function, S_low, S_high,
+                        device=dev, dtype=dtype, lanes=lanes)
+    prior = model.prior
     gen = torch.Generator(device=dev).manual_seed(seed)
     z0 = prior.to_unconstrained(prior.sample((D * C,), generator=gen, dtype=dtype, device=dev))
     t0 = time.time()
-    samples_z, stats = run_chees(model.logpost_batch, z0, gen, num_warmup=num_warmup,
-                                 num_samples=num_samples, max_leapfrogs=max_leapfrogs)
+    kw = dict(num_warmup=num_warmup, num_samples=num_samples, max_leapfrogs=max_leapfrogs)
+    if shard is not None:
+        samples_z, stats = run_chees_sharded(model.logpost_batch, z0, gen, mesh, shard.axis,
+                                             **kw)
+    else:
+        samples_z, stats = run_chees(model.logpost_batch, z0, gen, **kw)
     elapsed = time.time() - t0
 
     with torch.no_grad():
@@ -944,8 +1076,10 @@ def run_inference_many(
             "converged": (bool(np.nanmax(rhat) < 1.05)
                           if np.any(np.isfinite(rhat)) else False),
         }
-        if log_dir:
+        if log_dir and _is_writer(shard):
             _write_ultranest(os.path.join(log_dir, f"ds{i}"), names, th, res)
         res["samples"] = th
         results.append(res)
+    if log_dir:
+        _written(shard)
     return results

@@ -18,6 +18,13 @@ Adaptation (warmup only):
     iterations and frozen over the last ones; each refresh restarts dual
     averaging around the current step size.
 
+Every cross-chain statistic goes through a :class:`ChainAxis`: the
+chain means, the ChEES and accept-rate sums, the metric's (co)variance,
+and the rows of each random draw. The default axis is the identity
+over the C chains of one process; ``parallel.run_chees_sharded`` passes
+one whose sums are all-reduced over ranks, each rank holding its slice
+of the chains.
+
 The JAX package's ``run_chees_stepped`` has no counterpart: it exists to
 keep each TPU program short, and this loop is on the host already.
 """
@@ -29,7 +36,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["run_chees", "make_chees_transition", "batch_value_and_grad"]
+__all__ = ["run_chees", "make_chees_transition", "batch_value_and_grad", "ChainAxis"]
 
 
 def _halton(i: int, base: int = 2, num_bits: int = 30) -> float:
@@ -71,6 +78,30 @@ def _adam_update(state: _AdamState, grad: float, lr=0.025, b1=0.9, b2=0.999,
     return _AdamState(m, v, t), lr * mhat / (math.sqrt(vhat) + eps)
 
 
+class ChainAxis:
+    """The chain axis of :func:`run_chees` over ``total`` chains, of which
+    this process holds rows ``[lo, hi)``: cross-chain sums and the
+    process's rows of a draw over every chain. This one holds them all
+    and reduces nothing; a sharded axis overrides :meth:`allreduce`.
+    """
+
+    def __init__(self, total: int, lo: int = 0, hi: int = None):
+        self.total, self.lo = total, lo
+        self.hi = total if hi is None else hi
+
+    def allreduce(self, x):
+        """The sum of ``x`` over the processes that share the axis."""
+        return x
+
+    def mean(self, x):
+        """Mean over every chain of the axis of per-chain rows ``x``."""
+        return self.allreduce(torch.sum(x, dim=0)) / self.total
+
+    def rows(self, x):
+        """This process's rows of ``x``, drawn for every chain."""
+        return x[self.lo:self.hi]
+
+
 def batch_value_and_grad(logp_batch: Callable, Z):
     """(logp (C,), d logp / dZ (C, dim)) from one backward of the sum:
     the chains do not interact, so the gradient of the sum holds every
@@ -92,6 +123,7 @@ def make_chees_transition(
     target_accept: float = 0.651,
     max_leapfrogs: int = 1024,
     mass: str = "diag",
+    chains: ChainAxis = None,
 ):
     """The ChEES-HMC transition ``(state, it, is_warmup, generator) ->
     (state, (z, logp, mean_accept, n_steps))`` and its initializer
@@ -101,18 +133,26 @@ def make_chees_transition(
     cross-chain sample covariance (hundreds of chains estimate a
     dim ~ 10 covariance well), which preconditions the flagship model's
     alpha_2/f_1 ridge; "diag" keeps the marginal variances only.
+    ``chains``: the chain axis (:class:`ChainAxis`); C is this process's
+    share of it.
     """
     if mass not in ("diag", "dense"):
         raise ValueError(f"mass must be 'diag' or 'dense', got {mass!r}")
     dense = mass == "dense"
     eye = torch.eye(dim, dtype=dtype, device=device)
+    chains = ChainAxis(C) if chains is None else chains
+    C_all = chains.total
+
+    def _draw(gen, shape, fn=torch.randn):
+        """This process's rows of a draw for every chain of the axis."""
+        return chains.rows(fn(shape, generator=gen, dtype=dtype, device=device))
 
     # `chol` is the Cholesky factor of the estimated posterior covariance
     # Sigma (momenta r ~ N(0, Sigma^-1), velocity v = Sigma r, kinetic
     # energy |chol^T r|^2 / 2); for diag it is the (dim,) vector of stddevs
     if dense:
         def draw_momentum(gen, chol):
-            xi = torch.randn((C, dim), generator=gen, dtype=dtype, device=device)
+            xi = _draw(gen, (C_all, dim))
             # r = L^{-T} xi, so cov(r) = Sigma^{-1}
             return torch.linalg.solve_triangular(chol.T, xi.T, upper=True).T
 
@@ -123,7 +163,7 @@ def make_chees_transition(
             return 0.5 * torch.sum((r @ chol) ** 2, dim=1)
     else:
         def draw_momentum(gen, chol):
-            xi = torch.randn((C, dim), generator=gen, dtype=dtype, device=device)
+            xi = _draw(gen, (C_all, dim))
             return xi / chol[None, :]
 
         def velocity(r, chol):
@@ -162,15 +202,15 @@ def make_chees_transition(
         log_alpha = torch.where(torch.isfinite(log_alpha), log_alpha,
                                 torch.full_like(log_alpha, -math.inf))
         accept_prob = torch.clamp(torch.exp(log_alpha), max=1.0)
-        u = torch.rand((C,), generator=gen, dtype=dtype, device=device)
+        u = _draw(gen, (C_all,), torch.rand)
         accept = torch.log(u) < log_alpha
         z_next = torch.where(accept[:, None], z_new, z)
         logp_next = torch.where(accept, logp_new, logp)
         grad_next = torch.where(accept[:, None], grad_new, grad)
 
         # ChEES gradient for the trajectory length (cross-chain means)
-        zc_old = z - z.mean(0)
-        zc_new = z_new - z_new.mean(0)
+        zc_old = z - chains.mean(z)
+        zc_new = z_new - chains.mean(z_new)
         proj = torch.sum(zc_new * velocity(r_new, chol), dim=1)
         per_chain = (torch.sum(zc_new**2, 1) - torch.sum(zc_old**2, 1)) * proj
         # divergent trajectories give non-finite terms; they must not
@@ -178,20 +218,20 @@ def make_chees_transition(
         finite = torch.isfinite(per_chain)
         per_chain = torch.where(finite, per_chain, torch.zeros_like(per_chain))
         w = torch.where(finite, accept_prob, torch.zeros_like(accept_prob))
-        num, den = torch.sum(w * per_chain), torch.sum(w)
-        mean_accept = torch.mean(accept_prob)
+        sums = torch.stack([torch.sum(w * per_chain), torch.sum(w), torch.sum(accept_prob)])
 
         # metric: EMA of the cross-chain (co)variance, every iteration
+        zc = z_next - chains.mean(z_next)[None, :]
         if dense:
-            zc = z_next - z_next.mean(0)[None, :]
-            cov_now = (zc.T @ zc) / max(C - 1, 1) + 1e-6 * eye
+            cov_now = chains.allreduce(zc.T @ zc) / max(C_all - 1, 1) + 1e-6 * eye
             st["cov_ema"] = 0.9 * st["cov_ema"] + 0.1 * cov_now
         else:
-            var_now = torch.var(z_next, dim=0, unbiased=False) + 1e-6
+            var_now = chains.mean(zc * zc) + 1e-6
             st["cov_ema"] = 0.9 * st["cov_ema"] + 0.1 * var_now
 
         # the one host sync of the iteration
-        num, den, mean_accept = torch.stack([num, den, mean_accept]).double().tolist()
+        num, den, acc_sum = chains.allreduce(sums).double().tolist()
+        mean_accept = acc_sum / C_all
 
         chees_grad = h * num / max(den, 1e-10)
         # normalize the scale; gradient ascent on log tau
@@ -269,6 +309,7 @@ def run_chees(
     max_leapfrogs: int = 1024,
     mass: str = "diag",
     thin: int = 1,
+    chains: ChainAxis = None,
 ):
     """Run ChEES-HMC on a (C, dim) batch of chains.
 
@@ -279,12 +320,14 @@ def run_chees(
     Returns (samples (S, C, dim), stats) with stats ``logp`` (S, C),
     ``accept`` and ``n_leapfrogs`` (per iteration, warmup included),
     ``step_size``, ``traj_length`` and ``inv_mass`` (diag of Sigma).
+    ``chains``: the chain axis that takes the cross-chain statistics
+    (:class:`ChainAxis`, the identity over z0's chains by default).
     """
     z0 = torch.as_tensor(z0)
     C, dim = z0.shape
     transition, init = make_chees_transition(
         logp_batch, C, dim, z0.dtype, z0.device, num_warmup, target_accept,
-        max_leapfrogs, mass)
+        max_leapfrogs, mass, chains)
     state = init(z0, initial_step_size, initial_traj_length)
     samples, logps, accepts, nsteps = [], [], [], []
     for it in range(num_warmup + num_samples):

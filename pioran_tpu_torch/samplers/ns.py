@@ -17,7 +17,8 @@ sync per iteration, for the stop test.
 The state is a 13-tuple in the JAX package's order, with a
 ``torch.Generator`` in place of the PRNG key and Python ints for the
 iteration and call counts. The step writes the dead buffers in place
-instead of copying them.
+instead of copying them. ``run_ns_resumable`` writes that state, the
+generator's state included, every few iterations and resumes from it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["NSResult", "run_ns", "equal_weight_indices"]
+__all__ = ["NSResult", "run_ns", "run_ns_resumable", "equal_weight_indices"]
 
 
 class NSResult(NamedTuple):
@@ -75,6 +76,53 @@ def run_ns(
     (``num_mcmc`` preconditioned random-walk Metropolis steps, one sweep
     each). Posterior samples: :func:`equal_weight_indices`.
     """
+    return _run(loglike_u_batch, generator, num_live, dim, n_delete, num_mcmc, max_iters,
+                frac_remain, move, n_expand, n_shrink, dtype)
+
+
+def run_ns_resumable(
+    loglike_u_batch: Callable,
+    generator: torch.Generator,
+    checkpoint_dir: str,
+    num_live: int = 1024,
+    dim: int = 1,
+    n_delete: int = 128,
+    num_mcmc: int = 8,
+    max_iters: int = 2000,
+    frac_remain: float = 1e-2,
+    move: str = "slice",
+    n_expand: int = 4,
+    n_shrink: int = 8,
+    dtype: torch.dtype = torch.float64,
+    save_every: int = 5,
+    max_to_keep: int = 2,
+    group=None,
+) -> NSResult:
+    """:func:`run_ns` with checkpoint and resume, the analog of
+    ultranest's ``resume = true`` (reference
+    examples/ultranest/single_pl.jl:116).
+
+    Every ``save_every`` iterations the whole state (live set, dead
+    buffers, evidence, shrinkage, counts, the generator's state) is
+    written to ``checkpoint_dir``, keeping ``max_to_keep``. Run again
+    with the same directory, it resumes from the last finished
+    iteration, and gives exactly what :func:`run_ns` gives with the same
+    generator. ``group``: the process group of a run replicated over
+    ranks (the sharded sweeps of ``parallel.run_ns_sharded``); its rank 0
+    writes the checkpoints.
+    """
+    from ..checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep, save_every=save_every,
+                            group=group)
+    return _run(loglike_u_batch, generator, num_live, dim, n_delete, num_mcmc, max_iters,
+                frac_remain, move, n_expand, n_shrink, dtype, mgr)
+
+
+def _run(loglike_u_batch, generator, num_live, dim, n_delete, num_mcmc, max_iters,
+         frac_remain, move, n_expand, n_shrink, dtype, mgr=None) -> NSResult:
+    """The iteration loop of :func:`run_ns`; with a checkpoint manager it
+    starts from the latest checkpoint and saves after each iteration."""
     K, D = num_live, n_delete
     device = generator.device
     live_u = torch.rand((K, dim), generator=generator, dtype=dtype, device=device)
@@ -85,6 +133,10 @@ def run_ns(
                          n_expand, n_shrink)
     state = _ns_init_state(live_u, live_logl, generator, K, D, dim, dtype,
                            max_iters, move)
+    if mgr is not None:
+        restored = mgr.restore(state)
+        if restored is not None:
+            state = restored[0]
     log_frac = math.log(frac_remain)
     while state[4] < max_iters:
         live_logl, logX, logZ = state[1], state[2], state[3]
@@ -92,6 +144,8 @@ def run_ns(
         if state[4] > 0 and not bool(logZ_live - logZ > log_frac):
             break
         state = step(state)
+        if mgr is not None:
+            mgr.save(state, state[4])
     return _ns_finalize(state, K, D)
 
 

@@ -9,7 +9,8 @@ at even leaves in slot popcount(k), odd leaves checked against slots
 
 Warmup: Stan-style windowed adaptation, per chain: a dual-averaging step
 size toward the target accept statistic and a diagonal mass matrix from
-Welford accumulators, refreshed at the end of each doubling slow window.
+Welford accumulators, refreshed at the end of each doubling slow window
+(optionally pooled across chains by a ``mass_pool`` hook).
 
 The JAX package runs one chain per ``run_nuts`` and vmaps it. Here the C
 chains are one batch, with the semantics of that vmap: every leapfrog
@@ -286,6 +287,7 @@ def run_nuts(
     initial_step_size: float = 0.1,
     max_depth: int = 8,
     target_accept: float = 0.8,
+    mass_pool: Callable = None,
 ):
     """Run C NUTS chains: warmup (per-chain step size and diagonal mass)
     then sampling at each chain's dual-averaged step size.
@@ -299,6 +301,12 @@ def run_nuts(
     the warmup ones, each (C, iterations); ``step_size`` (C,) and
     ``inv_mass`` (C, dim). ``num_leaves`` counts each transition's
     leapfrogs (value+gradient evaluations) exactly.
+
+    ``mass_pool``: maps the (C, dim) regularized variance estimates at
+    each slow window's end to the chains' new inverse masses, the
+    counterpart of the JAX package's ``mass_pool_axis`` (``pmean`` of
+    the estimate): ``parallel.run_nuts_sharded`` averages it over every
+    chain on every rank. By default each chain keeps its own.
     """
     z0 = torch.as_tensor(z0)
     C, dim = z0.shape
@@ -328,6 +336,8 @@ def run_nuts(
             var = m2 / torch.clamp(wcount - 1, min=1)
             # regularize like Stan: shrink toward unit scale
             var = (wcount / (wcount + 5.0)) * var + 1e-3 * (5.0 / (wcount + 5.0))
+            if mass_pool is not None:
+                var = mass_pool(var)
             # restart step-size adaptation around the current value
             da = _da_init(torch.exp(da.log_step))
             inv_mass = var

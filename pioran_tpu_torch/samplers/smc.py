@@ -18,7 +18,8 @@ of the summed objective, since the particles do not interact) runs K3
 and K4. The JAX package's ``lax.while_loop`` over temper steps is a host
 loop here, with one device->host sync a step to read the temperature.
 Random numbers come from a ``torch.Generator``. ``run_smc_resumable``
-comes with checkpointing.
+writes the state and the generator's state every few temper steps and
+resumes from them.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["SMCResult", "run_smc", "smc_init", "systematic_resample"]
+__all__ = ["SMCResult", "run_smc", "run_smc_resumable", "smc_init", "systematic_resample"]
 
 
 class SMCResult(NamedTuple):
@@ -241,15 +242,61 @@ def run_smc(
     acceptance. Random numbers come from ``generator`` (on the particles'
     device). Returns :class:`SMCResult` with the log-evidence estimate.
     """
+    return _run(loglike_batch_fn, prior_logpdf_fn, particles0, generator, num_moves,
+                target_ess, max_steps, rw_scale, move)
+
+
+def run_smc_resumable(
+    loglike_batch_fn: Callable,
+    prior_logpdf_fn: Callable,
+    particles0,
+    generator: torch.Generator,
+    checkpoint_dir: str,
+    num_moves: int = 5,
+    target_ess: float = 0.8,
+    max_steps: int = 200,
+    rw_scale: Optional[float] = None,
+    save_every: int = 1,
+    max_to_keep: int = 2,
+    move: str = "rwm",
+) -> SMCResult:
+    """:func:`run_smc` with checkpoint and resume, ultranest-style.
+
+    After every ``save_every`` temper steps the whole state (particles,
+    their log-likelihoods and log-priors, temperature, logZ, step count,
+    histories, move scale) and ``generator``'s state are written to
+    ``checkpoint_dir`` (``checkpoint.CheckpointManager``, keeping
+    ``max_to_keep``). Run again with the same directory, it resumes from
+    the last finished step. A run that is not interrupted gives exactly
+    what :func:`run_smc` gives with the same generator, and so does a
+    resumed one.
+    """
+    from ..checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep, save_every=save_every)
+    return _run(loglike_batch_fn, prior_logpdf_fn, particles0, generator, num_moves,
+                target_ess, max_steps, rw_scale, move, mgr)
+
+
+def _run(loglike_batch_fn, prior_logpdf_fn, particles0, generator, num_moves, target_ess,
+         max_steps, rw_scale, move, mgr=None) -> SMCResult:
+    """The temper loop of :func:`run_smc`; with a checkpoint manager it
+    starts from the latest checkpoint and saves after each step."""
     if move not in ("rwm", "mala"):
         raise ValueError(f"move must be 'rwm' or 'mala', got {move!r}")
     N, dim = particles0.shape
     step = _make_step(loglike_batch_fn, prior_logpdf_fn, N, dim, num_moves, target_ess, move)
     state = smc_init(loglike_batch_fn, prior_logpdf_fn, particles0, max_steps=max_steps,
                      rw_scale=rw_scale, move=move)
+    if mgr is not None:
+        restored = mgr.restore({"state": state, "generator": generator})
+        if restored is not None:
+            state = restored[0]["state"]
     # the one host sync of a temper step: is lambda at 1 yet?
     while state["i"] < max_steps and float(state["lam"]) < 1.0:
         state = step(state, generator)
+        if mgr is not None:
+            mgr.save({"state": state, "generator": generator}, state["i"])
     return SMCResult(
         particles=state["particles"], logZ=state["logZ"], num_steps=state["i"],
         log_evidence_path=state["incr"], lambdas=state["lams"], acceptance=state["accs"])

@@ -719,3 +719,101 @@ def test_posterior_predict_checks_on_card(card, tmp_path):
                  "ppc_residuals_acvf.txt"):
         assert np.all(np.isfinite(np.loadtxt(os.path.join(path, name)))), name
     assert np.loadtxt(os.path.join(path, "psd_ppc_data.txt")).shape == (11, 1000)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the multi-device code on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_cuda_restores_onto_card(card, tmp_path):
+    """A state of CUDA tensors and a CUDA generator saved and restored
+    onto the card: the same values and dtypes on the card, and the
+    generator's seed and Philox offset back, so it draws what it would
+    have drawn."""
+    from pioran_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    torch.randn(1001, generator=gen, device=card)  # an offset that is not a multiple of 4
+    state = {"x": torch.randn(64, 3, generator=gen, device=card, dtype=torch.float32),
+             "logZ": torch.tensor(2.5, device=card, dtype=torch.float64), "i": 7, "gen": gen}
+    save_checkpoint(str(tmp_path), state, 7)
+    expected = torch.rand(513, generator=gen, device=card)
+    template = dict(state, gen=torch.Generator(device=card).manual_seed(0))
+    got, step = restore_checkpoint(str(tmp_path), template)
+    assert step == 7 and got["i"] == 7 and got["gen"] is template["gen"]
+    for k in ("x", "logZ"):
+        assert got[k].is_cuda and got[k].dtype == state[k].dtype
+        assert torch.equal(got[k], state[k])
+    assert torch.equal(torch.rand(513, generator=got["gen"], device=card), expected)
+
+
+@pytest.mark.cuda
+def test_smc_resume_bit_equal_on_card(card, tmp_path):
+    """run_smc_resumable on CUDA tensors with a CUDA generator, resumed
+    from a mid-run checkpoint, equals run_smc bit for bit."""
+    import os
+    import shutil
+
+    from pioran_tpu_torch.samplers.smc import run_smc, run_smc_resumable
+
+    def loglike(Z):
+        return -0.5 * torch.sum((Z - 1.0) ** 2 / 0.25, dim=1)
+
+    def logprior(Z):
+        return -0.5 * torch.sum(Z**2, dim=1)
+
+    z0 = torch.as_tensor(np.random.default_rng(1).normal(size=(1024, 3)), device=card)
+    kw = dict(num_moves=4, move="mala")
+    ref = run_smc(loglike, logprior, z0, torch.Generator(device=card).manual_seed(0), **kw)
+    full = str(tmp_path / "full")
+    run_smc_resumable(loglike, logprior, z0, torch.Generator(device=card).manual_seed(0),
+                      full, max_to_keep=1000, **kw)
+    mid = f"step_{max(ref.num_steps // 2, 1):08d}"
+    os.makedirs(str(tmp_path / "mid"))
+    shutil.copy(os.path.join(full, mid), str(tmp_path / "mid"))
+    res = run_smc_resumable(loglike, logprior, z0, torch.Generator(device=card).manual_seed(0),
+                            str(tmp_path / "mid"), **kw)
+    assert res.num_steps == ref.num_steps and torch.equal(res.logZ, ref.logZ)
+    assert torch.equal(res.particles, ref.particles)
+
+
+@pytest.mark.cuda
+def test_sharded_batched_fn_on_nccl_world_of_one(card):
+    """A one-rank NCCL group and its CUDA mesh: sharded_batched_fn runs K1
+    once at the full width and returns the unsharded values; the mesh
+    refuses a spec that is not on the rank's own device."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pioran_tpu_torch import parallel as par
+    from pioran_tpu_torch.parallel.mesh import check_device
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    par.initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                               timeout=timedelta(seconds=60))
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = par.make_mesh("chains", device_type="cuda")
+        a, b, c, d, t, y, s2 = _problem(64, 20, 300, seed=5)
+        args = [torch.as_tensor(x, device=card) for x in (a, b, c, d, t, y, s2)]
+        rows = torch.arange(64, device=card)
+
+        def batch(idx):
+            return batched_loglike(*(x[idx] for x in args[:4]), args[4], args[5][idx],
+                                   args[6][idx])
+
+        before = cuda_celerite.LAUNCHES
+        got = par.sharded_batched_fn(batch, mesh, "chains")(rows)
+        assert cuda_celerite.LAUNCHES == before + 1
+        assert torch.equal(got, batch(rows))
+        with pytest.raises(ValueError, match="this rank's device"):
+            check_device(mesh, "cpu")
+    finally:
+        dist.destroy_process_group()

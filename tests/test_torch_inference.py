@@ -99,12 +99,17 @@ def test_run_inference_ns_writes_jax_layout(tmp_path):
 
 
 @pytest.mark.parametrize("sampler", ["smc", "nuts"])
-def test_unported_samplers_raise(sampler):
-    """Every sampler of the JAX package runs; what is not ported yet is
-    resuming from a checkpoint, which raises and names its ROADMAP step."""
+def test_unported_samplers_raise(sampler, tmp_path):
+    """Every sampler of the JAX package runs, and NS and SMC resume from
+    checkpoints. Where the JAX package silently starts a fresh run, the
+    port raises: SMC asked to resume without a log_dir to hold the
+    checkpoints, and NUTS, which has none, asked to resume at all."""
     spec = tinf.single_bending_model(*_simu(32), n_components=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpointing .*ROADMAP"):
-        tinf.run_inference(spec, sampler=sampler, resume=True)
+    log_dir = None if sampler == "smc" else str(tmp_path / "run")
+    match = "needs a log_dir" if sampler == "smc" else "NS and SMC runs only"
+    with pytest.raises(ValueError, match=match):
+        tinf.run_inference(spec, sampler=sampler, resume=True, log_dir=log_dir)
+    assert not os.path.exists(str(tmp_path / "run"))
 
 
 def test_cuda_device_without_card_raises():

@@ -42,5 +42,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("pioran_tpu_torch.diagnostics.ppc", "pioran_tpu_torch.diagnostics.lsp",
                  "pioran_tpu_torch.diagnostics.approx_checks", "pioran_tpu_torch.models.gp",
                  "pioran_tpu_torch.utils.subset", "pioran_tpu_torch.utils.samples",
-                 "pioran_tpu_torch.inference", "pioran_tpu_torch.ops.cuda_celerite"):
+                 "pioran_tpu_torch.inference", "pioran_tpu_torch.ops.cuda_celerite",
+                 "pioran_tpu_torch.checkpoint", "pioran_tpu_torch.parallel.mesh",
+                 "pioran_tpu_torch.parallel.sharded"):
         assert name in res["modules"], name

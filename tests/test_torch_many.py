@@ -9,6 +9,8 @@ the dataset-mean gate of its own smoke test. float64 on the CPU.
 
 import json
 import os
+import socket
+from datetime import timedelta
 
 import jax
 import jax.numpy as jnp
@@ -173,8 +175,31 @@ def test_run_inference_many_is_seeded():
         assert not np.array_equal(x["samples"], z["samples"])
 
 
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def test_run_inference_many_refuses_mesh_and_other_samplers():
-    with pytest.raises(NotImplementedError, match="step 13"):
-        tinf.run_inference_many(_cuts((0, 30)), mesh=object(), device="cpu")
+    """Under a mesh (here a gloo group of this one process) the chains
+    shard over a named axis of it: an axis the mesh lacks raises. Only
+    ChEES runs the ensemble (the JAX package runs ChEES whatever it is
+    asked)."""
+    import torch.distributed as dist
+
+    from pioran_tpu_torch import parallel as par
+
+    par.initialize_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                               rank=0, timeout=timedelta(seconds=60))
+    try:
+        mesh = par.make_mesh("chains", device_type="cpu")
+        with pytest.raises(ValueError, match="no axis 'particles'"):
+            tinf.run_inference_many(_cuts((0, 30)), mesh=mesh, mesh_axis="particles",
+                                    device="cpu")
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="ChEES"):
         tinf.run_inference_many(_cuts((0, 30)), sampler="nuts", device="cpu")
