@@ -9,8 +9,9 @@ It builds the CUDA kernels from ``pioran_tpu_torch/csrc`` with nvcc
 (K1, the forward ``celerite_fwd``; K3 and K4, the adjoint pair
 ``celerite_fwd_aug`` and ``celerite_bwd``; their per-lane forms for
 ragged per-chain time grids: K2 ``celerite_fwd_multi``,
-``celerite_fwd_aug_multi`` and ``celerite_bwd_multi``; and K0, the
-table-streaming forward ``celerite_tables``), checks each against its
+``celerite_fwd_aug_multi`` and ``celerite_bwd_multi``; K0, the
+table-streaming forward ``celerite_tables``; and the wide forms of all
+seven past 32 terms, ``celerite_wide_*``), checks each against its
 plain PyTorch version, and drives the port's main paths with
 the flagship single-bending model (J = 20): on the reference's 485-point
 light curve, nested sampling (``run_inference(sampler="ns")``, 1024 live
@@ -47,14 +48,25 @@ world size 1 on an in-process NCCL group: sharded NS and ChEES against
 their unsharded runs, sharded SMC against the evidence gate, sharded
 NUTS with its pooled mass.
 Between them it checks the flagship gradients and the N = 2^16 gradient.
+Last, past 32 terms (phase 22): the DRWCelerite basis (two terms a
+component; J = 40 at the default 20 components): the wide kernels' times
+at J = 40 and 64 and the float64 value at the referee mean against the
+JAX package's (22a), ``run_inference(sampler="smc")`` on the DRWCelerite
+flagship through the wide K1 and K3/K4 alone (22b; gated on the
+evidence ± 1.5 and the referee), then every wide kernel against its
+plain version at J = 40, 70 and 100 (J = 40 also at the fit's 1024
+particles) and the entry points that no sampler
+runs here: the DRWCelerite many-model's sweeps and gradient (the wide K2
+and per-lane K3/K4) and ``batched_loglike_tables`` (the wide K0) (22).
 
 The phases run in this order: the build, the kernel checks and timings
-(2-4, 6-8, 10, 11, 13), SMC, the post-fit path, resume and the
-multi-device code (14, 19-21); then phase 9, the ChEES fit, starts in a
-child process of this script (``--only-chees``) and runs on the same card
-while this process runs NS, the multi-dataset run, NUTS and the other
-builders (5, 12, 15-18). The host-bound samplers then share the card and
-the host, so those phases' walls are not those of a run alone; with
+(2-4, 6-8, 10, 11, 13), SMC, the post-fit path, resume, the multi-device
+code and the wide kernels' times and fit (14, 19-21, 22a, 22b); then
+phase 9, the ChEES fit, starts in a child process of this script
+(``--only-chees``) and runs on the same card while this process runs NS,
+the multi-dataset run, NUTS, the other builders and the wide kernels'
+checks (5, 12, 15-18, 22). The host-bound samplers then share the card
+and the host, so those phases' walls are not those of a run alone; with
 ``--serial`` (or on a card whose compute mode is not Default) phase 9 runs
 in this process at that point and every phase runs alone.
 Each phase prints its lines; any failure exits non-zero before the result
@@ -85,6 +97,7 @@ REF_LOGZ, LOGZ_TOL = 1014.013, 0.90  # reference ultranest; 3x its logzerr
 ADJOINT_SRC = "pioran_tpu_torch/csrc/celerite_adjoint.cu"
 FWD_SRC = "pioran_tpu_torch/csrc/celerite_fwd.cu"
 TABLES_SRC = "pioran_tpu_torch/csrc/celerite_tables.cu"
+WIDE_SRC = "pioran_tpu_torch/csrc/celerite_wide.cu"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_fwd": (FWD_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),  # _fused_kernel
     "celerite_fwd_aug": (ADJOINT_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
@@ -95,6 +108,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_bwd_multi": (ADJOINT_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
     # _kernel, launched at :232 by batched_loglike_pallas
     "celerite_tables": (TABLES_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
+    # the wide forms past 32 terms, of the same TPU kernels
+    "celerite_wide_fwd": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
+    "celerite_wide_fwd_aug": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
+    "celerite_wide_bwd": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
+    "celerite_wide_fwd_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
+    "celerite_wide_fwd_aug_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
+    "celerite_wide_bwd_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
+    "celerite_wide_tables": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
 }
 PHASE2_BATCHES = (128, 4096, 1000, 1024)  # NS sweep, final sweep, ragged edge, SMC sweep
 PHASE2_TIMED = (128, 1024, 4096)
@@ -150,6 +171,15 @@ RESUME_NS = dict(num_particles=256, num_ns_mcmc=2, ns_move="rwm", num_samples=50
 MD_CHEES = dict(num_chains=64, num_warmup=100, num_samples=100, hmc_max_leapfrogs=8)
 MD_NUTS = dict(num_warmup=34, num_samples=6, max_depth=4)
 MD_NUTS_CHAINS = 16
+# phase 22: the DRWCelerite basis (two terms a component) at 20, 35 and 50
+# components, J = 40, 70, 100; timed at 20 and 32 components (J = 40, 64)
+WIDE_NC = (20, 35, 50)
+WIDE_TIMED_NC = (20, 32)
+WIDE_BATCHES = (64, 65)             # a batch, and a ragged one
+DRW_LL64 = 1021.110678373424        # JAX package, CPU, float64, at the referee mean
+# phase 14's 1.0 widened by the basis's +0.37 nats at the referee mean
+# (tests/test_torch_inference.py) and the fit's own noise
+DRW_LOGZ_TOL = 1.5
 # the H100 SXM's published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
@@ -232,25 +262,27 @@ def referee_thetas(spec, B, gen):
     return th
 
 
-def flagship_coefficients(spec, B, gen):
+def flagship_coefficients(spec, B, gen, n_components=20, basis_function="SHO"):
     """(theta, a, b, c, d) at B rows from :func:`referee_thetas`, through
-    the port's own basis approximation; lane 0 is forced
-    non-positive-definite."""
+    the port's own basis approximation (J = n_components, twice that for
+    DRWCelerite); lane 0 is forced non-positive-definite."""
     from pioran_tpu_torch import SingleBendingPowerLaw, approx
 
     th = referee_thetas(spec, B, gen)
     kern = approx(SingleBendingPowerLaw(th[:, 0], th[:, 2], th[:, 1]),
-                  spec.f_min, spec.f_max, 20, th[:, 3])
+                  spec.f_min, spec.f_max, n_components, th[:, 3],
+                  basis_function=basis_function)
     a, b, c, d = (x.contiguous() for x in kern.coefficients())
     a[0] = -50.0 * a[0]
     return th, a, b, c, d
 
 
-def flagship_inputs(spec, B, gen):
+def flagship_inputs(spec, B, gen, **basis):
     """(a, b, c, d, y, sigma2) at B rows from :func:`flagship_coefficients`
-    on the spec's own light curve; lane 0 is not positive definite."""
+    (``basis``: its n_components and basis_function) on the spec's own
+    light curve; lane 0 is not positive definite."""
     dev, dt = spec.device, spec.dtype
-    th, a, b, c, d = flagship_coefficients(spec, B, gen)
+    th, a, b, c, d = flagship_coefficients(spec, B, gen, **basis)
     y = torch.as_tensor(spec.y, dtype=dt, device=dev)
     e = torch.as_tensor(spec.yerr, dtype=dt, device=dev)
     yv = (torch.log(y)[None, :] - th[:, 5:6]).contiguous()
@@ -279,13 +311,13 @@ def many_datasets():
     return out
 
 
-def multi_inputs(spec, model, B, gen):
+def multi_inputs(spec, model, B, gen, **basis):
     """(a, b, c, d, T, y, sigma2, n_valid, DT) at B ragged rows: the
-    flagship coefficients of :func:`flagship_coefficients` on dataset
-    i mod D's light curve, padded as the multi-dataset model pads it;
-    lane 0 is not positive definite. sigma2 is left as the model gives it
-    on the padding."""
-    th, a, b, c, d = flagship_coefficients(spec, B, gen)
+    flagship coefficients of :func:`flagship_coefficients` (``basis`` as
+    there) on dataset i mod D's light curve, padded as the multi-dataset
+    model pads it; lane 0 is not positive definite. sigma2 is left as the
+    model gives it on the padding."""
+    th, a, b, c, d = flagship_coefficients(spec, B, gen, **basis)
     rows = torch.arange(B, device=spec.device) % model.data[0].shape[0]
     T, DT, Y, E, NV = (x[rows].contiguous() for x in model.data)
     yv = (torch.log(Y) - th[:, 5:6]).contiguous()
@@ -302,7 +334,7 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
-    libs = ("celerite_fwd", "celerite_adjoint", "celerite_tables")
+    libs = ("celerite_fwd", "celerite_adjoint", "celerite_tables", "celerite_wide")
     t0 = time.perf_counter()
     _build.load_all(libs)  # one nvcc per source, started together
     wall = time.perf_counter() - t0
@@ -316,14 +348,24 @@ def phase_build():
 def ptxas_summary(log: str) -> str:
     """'kernel<type,JP,grid> regs spill stores/loads' for each entry
     function in nvcc's -Xptxas -v output (grid: shared or per-lane t;
-    tables for K0)."""
+    tables for K0); the wide kernels as wide_fwd<type,grid[,aug]> and
+    wide_bwd<type,grid>."""
     out, cur, spill = [], None, None
     for ln in log.splitlines():
         m = re.search(r"(celerite_fwd_kernel|fwd_aug_kernel|bwd_kernel|celerite_tables_kernel)"
                       r"I([fd])Li(\d+)E(?:Lb([01])E)?", ln)
+        w = re.search(r"wide_(fwd|bwd)_kernelI([fd])(?:Li(\d)E)?Lb([01])E", ln)
         if "Compiling entry function" in ln and m:
             grid = {"1": "per-lane", "0": "shared", None: "tables"}[m.group(4)]
             cur, spill = f"{m.group(1)}<{m.group(2)},{m.group(3)},{grid}>", None
+            continue
+        if "Compiling entry function" in ln and w:
+            if w.group(1) == "fwd":
+                grid = ("shared", "per-lane", "tables")[int(w.group(3))]
+                tag = grid + (",aug" if w.group(4) == "1" else "")
+            else:
+                tag = "per-lane" if w.group(4) == "1" else "shared"
+            cur, spill = f"wide_{w.group(1)}<{w.group(2)},{tag}>", None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if cur and m and spill is None:
@@ -2069,6 +2111,433 @@ def phase_multi_device(dev, out_dir):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 22: past 32 terms, the DRWCelerite flagship through the wide kernels
+# ---------------------------------------------------------------------------
+
+DRW = dict(basis_function="DRWCelerite")
+
+
+def drw_spec(dev, dtype, n_components=20):
+    """The flagship light curve under the DRWCelerite basis: two celerite
+    terms a component, J = 2 n_components."""
+    from pioran_tpu_torch import single_bending_model
+
+    sub, xbar, va = load_subset()
+    return single_bending_model(sub[:, 0], sub[:, 1], sub[:, 2], xbar, va, device=dev,
+                                dtype=dtype, n_components=n_components, **DRW)
+
+
+def wide_counts():
+    """The wide kernels' launch counters, and the warp-per-chain ones'
+    total (``narrow``)."""
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+
+    return {"celerite_wide_fwd": cc.WIDE_LAUNCHES,
+            "celerite_wide_fwd_multi": cc.WIDE_MULTI_LAUNCHES,
+            "celerite_wide_tables": cc.WIDE_TABLES_LAUNCHES,
+            "celerite_wide_fwd_aug": vjp.WIDE_FWD_AUG_LAUNCHES,
+            "celerite_wide_bwd": vjp.WIDE_BWD_LAUNCHES,
+            "celerite_wide_fwd_aug_multi": vjp.WIDE_FWD_AUG_MULTI_LAUNCHES,
+            "celerite_wide_bwd_multi": vjp.WIDE_BWD_MULTI_LAUNCHES,
+            "narrow": (cc.LAUNCHES + cc.MULTI_LAUNCHES + cc.TABLES_LAUNCHES + vjp.FWD_AUG_LAUNCHES
+                       + vjp.BWD_LAUNCHES + vjp.FWD_AUG_MULTI_LAUNCHES + vjp.BWD_MULTI_LAUNCHES)}
+
+
+def zero_wide_counts():
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+
+    zero_launch_counts()
+    cc.MULTI_LAUNCHES = 0
+    vjp.FWD_AUG_MULTI_LAUNCHES = vjp.BWD_MULTI_LAUNCHES = 0
+    cc.WIDE_LAUNCHES = cc.WIDE_MULTI_LAUNCHES = cc.WIDE_TABLES_LAUNCHES = 0
+    vjp.WIDE_FWD_AUG_LAUNCHES = vjp.WIDE_BWD_LAUNCHES = 0
+    vjp.WIDE_FWD_AUG_MULTI_LAUNCHES = vjp.WIDE_BWD_MULTI_LAUNCHES = 0
+
+
+def drw_rows(spec, B, gen, nc):
+    """DRWCelerite flagship inputs at B rows (J = 2 nc) from
+    :func:`flagship_inputs`, lanes 0 and B - 1 not positive definite (the
+    ragged batch's extra lane then adds nothing to t's cotangent)."""
+    a, b, c, d, y, s2 = flagship_inputs(spec, B, gen, n_components=nc, **DRW)
+    a[B - 1] = -50.0 * a[B - 1]
+    return a, b, c, d, y, s2
+
+
+def wide_gates(tag, ks, qs, ps, names):
+    """Float64 kernel outputs ``ks[f64]`` within 1e-9 relative of the
+    plain float64 ones ``ps`` (per row: ll relative to |ll|, tables and
+    cotangents 2-norm relative); float32 ``ks[f32]`` against ``ps`` within
+    PERF.md's gate on the plain float32 loop's own error ``qs`` (median and
+    90th percentile of the rows within 3x; one-row outputs, t's summed
+    cotangent, within 3x or 1e-5). Returns (the f64 worst error, the f32
+    worst ratios (median, 90th percentile), the f32 max abs difference
+    from the plain float32 outputs)."""
+    err = lambda x, r: (x.double() - r.double()).abs()[:, 0] / r.double().abs()[:, 0] \
+        if x.shape[1:] == (1,) and x.shape[0] > 1 else chain_err(x, r)  # noqa: E731
+    worst64, ratios, max_abs = 0.0, [0.0, 0.0], 0.0
+    for name, k64, k32, q, r in zip(names, ks[torch.float64], ks[torch.float32], qs, ps):
+        e64 = float(err(k64, r).max())
+        check(e64 <= 1e-9, f"{tag} f64 {name}: rel err {e64:.3e} > 1e-9")
+        worst64 = max(worst64, e64)
+        e_k, e_q = err(k32, r), err(q, r)
+        if e_k.numel() > 1:
+            ratios = [max(u, v) for u, v in zip(ratios, f32_spread(tag, name, e_k, e_q)[:2])]
+        else:
+            check(float(e_k) <= max(3.0 * float(e_q), 1e-5),
+                  f"{tag} f32 {name}: kernel rel err {float(e_k):.3e} > 3 x the f32 plain "
+                  f"loop's {float(e_q):.3e}")
+        max_abs = max(max_abs, float((k32.double() - q.double()).abs().max()))
+    return worst64, ratios, max_abs
+
+
+def hold_wide(spec64, nc, gen, dt, nv=None, model=None, batches=WIDE_BATCHES):
+    """The wide K1 (K2 on ragged grids) and K3/K4 against their plain
+    versions on the DRWCelerite flagship's coefficients at nc components,
+    at each batch of ``batches`` (rows 0 to B - 1 of the largest, B;
+    lanes 0 and B - 1 of that not positive definite): the plain loops run
+    once at B in each dtype. Shared grid: the subset's t and host
+    spacings ``dt``; ragged: ``model``'s padded grids. Returns {kernel:
+    (f64 worst, f32 ratios, f32 max abs)}."""
+    from pioran_tpu_torch.ops import cuda_celerite as cc
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+    from pioran_tpu_torch.ops.cuda_celerite_vjp import bwd, bwd_plain, fwd_aug, fwd_aug_plain
+
+    dev, B = spec64.device, max(batches)
+    if model is None:
+        a, b, c, d, y, s2 = drw_rows(spec64, B, gen, nc)
+        t = torch.as_tensor(spec64.t, dtype=torch.float64, device=dev)
+        kw = dict(dt=dt)
+    else:
+        a, b, c, d, t, y, s2, nv, dt = multi_inputs(spec64, model, B, gen, n_components=nc, **DRW)
+        a[B - 1] = -50.0 * a[B - 1]
+        s2 = torch.where(vjp.live_steps(nv, t.shape[1]), s2, torch.ones_like(s2))
+        kw = dict(dt=dt, n_valid=nv)
+    args = {torch.float64: (a, b, c, d, t, y, s2)}
+    args[torch.float32] = tuple(x.float() for x in args[torch.float64])
+    def k1(xs, kwk):  # K1, or K2 on ragged grids
+        if nv is None:
+            return cc.batched_loglike(*xs, kwk["dt"])
+        return cc.batched_loglike_multi(*xs, kwk["n_valid"], kwk["dt"])
+
+    plain = {dtype: cc.batched_loglike_plain(*x, dt) if nv is None
+             else cc.batched_loglike_multi_plain(*x, nv, dt) for dtype, x in args.items()}
+    ll_p, res_p = fwd_aug_plain(*args[torch.float64], **kw)
+    fin = torch.isfinite(ll_p)
+    check(bool(~fin[0]) and bool(~fin[B - 1]) and int(fin.sum()) > B // 2,
+          f"J={2 * nc}: -inf lanes of the plain loop {int((~fin).sum())}")
+    g = torch.where(fin, torch.linspace(0.5, 1.5, B, dtype=torch.float64, device=dev), 0.0)
+    ref = adjoint_rows(fin, ll_p, res_p, bwd_plain(*args[torch.float64], res_p, g, **kw))
+    ll_q, res_q = fwd_aug_plain(*args[torch.float32], **kw)
+    own = adjoint_rows(fin, ll_q, res_q, bwd_plain(*args[torch.float32], res_q, g.float(), **kw))
+    out = {}
+    for Bk in batches:
+        f = fin[:Bk]
+        ks1, ks, live = {}, {}, None if nv is None else vjp.live_steps(nv[:Bk], t.shape[-1])
+        kwk = dict(kw, n_valid=nv[:Bk]) if nv is not None else kw
+        if nv is not None:
+            kwk["dt"] = dt[:Bk]
+        for dtype, xs in args.items():
+            xs = tuple(x[:Bk] if x.dim() == 2 else x for x in xs)
+            v = k1(xs, kwk)
+            ll, res = fwd_aug(*xs, **kwk)
+            grads = bwd(*xs, res, g[:Bk].to(dtype), **kwk)
+            torch.cuda.synchronize()
+            tag = f"J={2 * nc} B={Bk} {str(dtype)[6:]}{' per-lane' if nv is not None else ''}"
+            for name, val in (("K1/K2", v), ("K3", ll)):
+                check(torch.equal(torch.isfinite(val), f), f"{tag} {name}: -inf lanes differ")
+            check(all(x.dim() == 1 or bool((x[0] == 0).all()) for x in grads),
+                  f"{tag}: non-PD lane's gradient")
+            if live is not None:
+                check(all(bool((x[~live] == 0).all()) for x in grads[4:]),
+                      f"{tag}: t/y/sigma2 cotangents not zero past n_valid")
+            ks1[dtype] = [v[f][:, None]]
+            ks[dtype] = adjoint_rows(f, ll, res, grads)
+        # lane B - 1 is -inf: the first B - 1 rows have the same finite
+        # chains, and t's summed cotangent the same terms, as all B
+        tag = f"J={2 * nc} B={Bk}"
+        p1 = [plain[torch.float64][:Bk][f][:, None]]
+        q1 = [plain[torch.float32][:Bk][f][:, None]]
+        out.setdefault("K1", []).append(wide_gates(tag + " K1", ks1, q1, p1, ("ll",)))
+        out.setdefault("K3", []).append(wide_gates(tag + " K3", {k: v[:8] for k, v in ks.items()},
+                                                   own[:8], ref[:8], ADJ_NAMES[:8]))
+        out.setdefault("K4", []).append(wide_gates(tag + " K4", {k: v[8:] for k, v in ks.items()},
+                                                   own[8:], ref[8:], ADJ_NAMES[8:]))
+    return {k: (max(x[0] for x in v), [max(x[1][i] for x in v) for i in range(2)],
+                max(x[2] for x in v)) for k, v in out.items()}
+
+
+def hold_wide_tables(spec64, nc, gen):
+    """The wide K0 against its plain version at B = 65 and its first 64
+    rows, on the DRWCelerite flagship's tables at nc components. Returns
+    (f64 worst, f32 ratios, f32 max abs)."""
+    from pioran_tpu_torch.ops.cuda_celerite import (
+        build_tables, loglike_from_tables, loglike_from_tables_plain)
+
+    B = max(WIDE_BATCHES)
+    a, b, c, d, y, s2 = drw_rows(spec64, B, gen, nc)
+    t = torch.as_tensor(spec64.t, dtype=torch.float64, device=spec64.device)
+    res = []
+    tabs = {}
+    for dtype in (torch.float64, torch.float32):
+        xs = [x.to(dtype) for x in (a, b, c, d, t, y, s2)]
+        tabs[dtype] = (*build_tables(*xs[:5]), *xs[5:], xs[0].sum(1))
+    plain = {k: loglike_from_tables_plain(*v) for k, v in tabs.items()}
+    fin = torch.isfinite(plain[torch.float64])
+    for Bk in WIDE_BATCHES:
+        ks = {}
+        for dtype, (U, V, phi, yy, ss, suma) in tabs.items():
+            k = loglike_from_tables(U[..., :Bk], V[..., :Bk], phi[..., :Bk], yy[:Bk], ss[:Bk],
+                                    suma[:Bk])
+            torch.cuda.synchronize()
+            check(torch.equal(torch.isfinite(k), fin[:Bk]), f"K0 J={2 * nc} B={Bk}: -inf lanes")
+            ks[dtype] = [k[fin[:Bk]][:, None]]
+        f = fin[:Bk]
+        res.append(wide_gates(f"K0 J={2 * nc} B={Bk}", ks, [plain[torch.float32][:Bk][f][:, None]],
+                              [plain[torch.float64][:Bk][f][:, None]], ("ll",)))
+    return max(x[0] for x in res), [max(x[1][i] for x in res) for i in range(2)], \
+        max(x[2] for x in res)
+
+
+def phase_wide_times(dev, datasets):
+    """Phase 22a, before the ChEES child (the card alone): each wide
+    kernel's CUDA-event time at J = 40 and 64 on DRWCelerite flagship
+    inputs (float32, N = 485) beside its bound; the plain versions' times
+    at J = 40 at the same shapes; the float64 value at the referee mean
+    through the wide K1. Returns {kernel: (ms at J = 40, plain ms,
+    (bytes, ops) at J = 40)}."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops import cuda_celerite as cc
+    from pioran_tpu_torch.ops.cuda_celerite import (
+        build_tables, loglike_from_tables, loglike_from_tables_plain)
+    from pioran_tpu_torch.ops.cuda_celerite_vjp import (
+        KC, bwd, bwd_plain, fwd_aug, fwd_aug_plain, live_steps)
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    spec32 = drw_spec(dev, torch.float32)
+    N = len(spec32.t)
+    t = torch.as_tensor(spec32.t, dtype=torch.float32, device=dev)
+    dt = torch.as_tensor(np.diff(spec32.t.astype(np.float64)), device=dev)
+    model = tinf._many_model(datasets, device=dev, dtype=torch.float32)
+    rows, lines = {}, []
+
+    def put(name, J, B, ms, cost, plain=None):
+        bms, by = bound(*cost)
+        lines.append(f"{name} J={J} B={B}: ms={ms:.4f} us_per_step={ms * 1e3 / N:.3f} "
+                     f"bound_ms={bms:.5f} ({by}) x_bound={ms / bms:.1f}"
+                     + (f" plain_ms={plain:.1f}" if plain is not None else ""))
+        if J == 40 and (name not in rows or plain is not None):
+            rows[name] = (ms, plain, cost)
+
+    for nc in WIDE_TIMED_NC:
+        J = 2 * nc
+        basis = dict(n_components=nc, **DRW)
+        for B in (128, 4096):
+            a, b, c, d, y, s2 = flagship_inputs(spec32, B, gen, **basis)
+            xs = (a, b, c, d, t, y, s2, dt)
+            ms = cuda_ms(lambda: cc.batched_loglike(*xs), 10)  # noqa: B023
+            plain = (cuda_ms(lambda: cc.batched_loglike_plain(*xs), 1)  # noqa: B023
+                     if J == 40 and B == 128 else None)
+            put("celerite_wide_fwd", J, B, ms, k1_cost(B, J, N), plain)
+            if B == 4096:
+                U, V, phi = build_tables(a, b, c, d, t)
+                tabs = (U, V, phi, y, s2, a.sum(1))
+                ms = cuda_ms(lambda: loglike_from_tables(*tabs), 5)  # noqa: B023
+                plain = (cuda_ms(lambda: loglike_from_tables_plain(*tabs), 1)  # noqa: B023
+                         if J == 40 else None)
+                put("celerite_wide_tables", J, B, ms, tables_cost(B, J, N), plain)
+                del U, V, phi, tabs
+        for B in (512, 1024):
+            a, b, c, d, y, s2 = flagship_inputs(spec32, B, gen, **basis)
+            args = (a, b, c, d, t, y, s2)
+            ll, res = fwd_aug(*args, dt=dt)
+            g = torch.isfinite(ll).float()
+            k3 = cuda_ms(lambda: fwd_aug(*args, dt=dt), 5)  # noqa: B023
+            k4 = cuda_ms(lambda: bwd(*args, res, g, dt=dt), 3)  # noqa: B023
+            first = J == 40 and B == 512
+            p3 = cuda_ms(lambda: fwd_aug_plain(*args, dt=dt), 1) if first else None  # noqa: B023
+            p4 = (cuda_ms(lambda: bwd_plain(*args, res, g, dt=dt), 1)  # noqa: B023
+                  if first else None)
+            c3, c4 = adjoint_cost(B, J, N, KC, 4, int(g.sum()))
+            put("celerite_wide_fwd_aug", J, B, k3, c3, p3)
+            put("celerite_wide_bwd", J, B, k4, c4, p4)
+        B = MULTI_BATCHES[0]
+        a, b, c, d, T, y, s2, nv, DT = multi_inputs(spec32, model, B, gen, **basis)
+        s2 = torch.where(live_steps(nv, T.shape[1]), s2, torch.ones_like(s2))
+        args = (a, b, c, d, T, y, s2)
+        ll, res = fwd_aug(*args, dt=DT, n_valid=nv)
+        g = torch.isfinite(ll).float()
+        k2 = cuda_ms(lambda: cc._launch(*args, DT, nv), 10)  # noqa: B023
+        k3 = cuda_ms(lambda: fwd_aug(*args, dt=DT, n_valid=nv), 5)  # noqa: B023
+        k4 = cuda_ms(lambda: bwd(*args, res, g, dt=DT, n_valid=nv), 3)  # noqa: B023
+        p2 = p3 = p4 = None
+        if J == 40:
+            p2 = cuda_ms(lambda: cc.batched_loglike_multi_plain(*args, nv, DT), 1)  # noqa: B023
+            p3 = cuda_ms(lambda: fwd_aug_plain(*args, dt=DT, n_valid=nv), 1)  # noqa: B023
+            p4 = cuda_ms(lambda: bwd_plain(*args, res, g, dt=DT, n_valid=nv), 1)  # noqa: B023
+        nvn = nv.cpu().numpy()
+        c2, c3, c4 = multi_costs(B, J, T.shape[1], KC, 4, nvn, g.bool().cpu().numpy())
+        put("celerite_wide_fwd_multi", J, B, k2, c2, p2)
+        put("celerite_wide_fwd_aug_multi", J, B, k3, c3, p3)
+        put("celerite_wide_bwd_multi", J, B, k4, c4, p4)
+    for ln in lines:
+        print(f"phase 22a times f32 N={N}: {ln}")
+
+    # the float64 value at the referee mean through the wide K1
+    spec64 = drw_spec(dev, torch.float64)
+    before = wide_counts()
+    ll = float(spec64.loglike_batch(torch.tensor([referee()["is_mean"]], dtype=torch.float64,
+                                                 device=dev))[0])
+    after = wide_counts()
+    rel = abs(ll / DRW_LL64 - 1.0)
+    print(f"phase 22a DRWCelerite f64 loglike at the referee mean (J=40): {ll!r} "
+          f"(JAX package {DRW_LL64!r}, rel {rel:.2e}, gate 1e-9)")
+    check(rel <= 1e-9, f"DRWCelerite f64 value {ll!r} off {DRW_LL64!r} by {rel:.2e}")
+    check(after["celerite_wide_fwd"] == before["celerite_wide_fwd"] + 1
+          and after["narrow"] == before["narrow"], "the value did not run the wide K1 alone")
+    return rows
+
+
+def phase_wide_smc(dev, out_dir):
+    """Phase 22b, before the ChEES child: tempered SMC on the DRWCelerite
+    flagship (J = 40) with phase 14's settings, through the wide K1 and
+    K3/K4 alone. Returns its launches."""
+    import pioran_tpu_torch.inference as tinf
+
+    spec = drw_spec(dev, torch.float32)
+    log_dir = os.path.join(out_dir, "smc_drw")
+    zero_wide_counts()
+    t0 = time.perf_counter()
+    res = tinf.run_inference(spec, sampler="smc", log_dir=log_dir, **SMC)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = wide_counts()
+    steps = res["num_temper_steps"]
+    ref = referee()
+    mean, sd = np.asarray(res["posterior"]["mean"]), np.asarray(res["posterior"]["stdev"])
+    pulls = (mean - np.asarray(ref["is_mean"])) / np.asarray(ref["is_std"])
+    width = sd / np.asarray(ref["is_std"])
+    print(f"phase 22b SMC DRWCelerite (J=40): particles={SMC['num_particles']} "
+          f"moves={SMC['num_moves']} (mala) logz={res['logz']:.4f} (gate {REF_LOGZ} +- "
+          f"{DRW_LOGZ_TOL}) temper_steps={steps} ncall={res['ncall']} wall_s={wall:.2f} "
+          f"ms_per_temper_step={wall / max(steps, 1) * 1e3:.1f} launches={counts}")
+    print(f"phase 22b SMC DRWCelerite pulls vs referee: {np.round(pulls, 4).tolist()} "
+          f"width ratios: {np.round(width, 4).tolist()}")
+    check(abs(res["logz"] - REF_LOGZ) <= DRW_LOGZ_TOL,
+          f"DRWCelerite SMC logZ {res['logz']:.4f} outside {REF_LOGZ} +- {DRW_LOGZ_TOL}")
+    check(bool(np.all(np.abs(pulls) <= 0.5)), f"DRWCelerite SMC pull > 0.5 sd: {pulls}")
+    check(bool(np.all((width >= 0.75) & (width <= 1.33))),
+          f"DRWCelerite SMC width ratio outside [0.75, 1.33]: {width}")
+    check(res["ncall"] == steps * SMC["num_moves"] * SMC["num_particles"], "SMC ncall formula")
+    check(counts["celerite_wide_fwd"] >= steps * SMC["num_moves"],
+          f"wide K1 launches {counts['celerite_wide_fwd']} < {steps * SMC['num_moves']} moves")
+    check(min(counts["celerite_wide_fwd_aug"], counts["celerite_wide_bwd"])
+          >= steps * (SMC["num_moves"] + 1), f"wide K3/K4 launches {counts} < gradients")
+    check(counts["narrow"] == 0, f"the J = 40 fit launched a warp-per-chain kernel: {counts}")
+    for rel in (("chains", "equal_weighted_post.txt"), ("info", "results.json")):
+        check(os.path.isfile(os.path.join(log_dir, *rel)), f"{rel} not written")
+    print("phase 22b SMC DRWCelerite: ok")
+    return {k: v for k, v in counts.items() if k != "narrow"}
+
+
+def phase_wide(dev, datasets):
+    """Phase 22, beside the ChEES child: every wide kernel against its
+    plain version on the DRWCelerite flagship's coefficients at 20, 35 and
+    50 components (J = 40, 70, 100, at B = 65 and 64, and J = 40 at the
+    SMC fit's 1024 particles; the per-lane forms at J = 40 on phase 10's
+    ragged datasets; K0 at J = 40 and 100), then the paths of the
+    entry points that have no sampler here: no-gradient sweeps of the
+    DRWCelerite many-model (the wide K2), its value and gradient (the
+    wide per-lane K3/K4) and flagship sweeps of batched_loglike_tables
+    (the wide K0). Returns ({kernel: f32 max abs err}, those paths'
+    launches)."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops.cuda_celerite import batched_loglike_tables
+    from pioran_tpu_torch.ops.cuda_celerite_vjp import KC, wide_bwd_shape
+    from pioran_tpu_torch.samplers.chees import batch_value_and_grad
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    spec64 = drw_spec(dev, torch.float64)
+    dt64 = torch.as_tensor(np.diff(spec64.t.astype(np.float64)), device=dev)
+    max_abs, summary = {}, []
+    # every width at B = 65 and 64; J = 40 also at the SMC fit's batch,
+    # where the wide K4 keeps its T chunk in the device scratch
+    B_fit = SMC["num_particles"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nc, batches in [(nc, WIDE_BATCHES) for nc in WIDE_NC] + [(WIDE_NC[0], (B_fit,))]:
+        got = hold_wide(spec64, nc, gen, dt64, batches=batches)
+        where = []
+        for dtype in (torch.float64, torch.float32):
+            _, _, carry, chunk = wide_bwd_shape(2 * nc, KC, dtype, max(batches), sms)
+            where.append(f"{str(dtype)[6:]} K4 carry in {'scratch' if carry else 'smem'}, "
+                         f"chunk in {'scratch' if chunk else 'smem'}")
+        summary.append(f"J={2 * nc} B={batches} ({'; '.join(where)}): " + " ".join(
+            f"{k} f64 {v[0]:.2e} f32 ratios {v[1][0]:.2f}/{v[1][1]:.2f}" for k, v in got.items()))
+        for k, name in (("K1", "celerite_wide_fwd"), ("K3", "celerite_wide_fwd_aug"),
+                        ("K4", "celerite_wide_bwd")):
+            max_abs[name] = max(max_abs.get(name, 0.0), got[k][2])
+    model64 = tinf._many_model(datasets, device=dev, dtype=torch.float64)
+    got = hold_wide(spec64, WIDE_NC[0], gen, None, model=model64)
+    summary.append(f"per-lane J={2 * WIDE_NC[0]}: " + " ".join(
+        f"{k} f64 {v[0]:.2e} f32 ratios {v[1][0]:.2f}/{v[1][1]:.2f}" for k, v in got.items()))
+    for k, name in (("K1", "celerite_wide_fwd_multi"), ("K3", "celerite_wide_fwd_aug_multi"),
+                    ("K4", "celerite_wide_bwd_multi")):
+        max_abs[name] = got[k][2]
+    for nc in (WIDE_NC[0], WIDE_NC[-1]):
+        w64, ratios, mx = hold_wide_tables(spec64, nc, gen)
+        summary.append(f"K0 J={2 * nc}: f64 {w64:.2e} f32 ratios {ratios[0]:.2f}/{ratios[1]:.2f}")
+        max_abs["celerite_wide_tables"] = max(max_abs.get("celerite_wide_tables", 0.0), mx)
+    print(f"phase 22 wide kernels vs plain: ok N={len(spec64.t)} lanes 0 and B - 1 of the "
+          f"largest batch non-PD (-inf, zero gradient); f64 gate 1e-9 relative, f32 gate 3x the plain loop's "
+          f"own error at the rows' median and 90th percentile | " + " | ".join(summary))
+
+    # the entry points' paths: counters zeroed, the path, counters read
+    launches = {}
+    model = tinf._many_model(datasets, device=dev, dtype=torch.float32, n_components=20, **DRW)
+    B = MANY_D * MANY["num_chains"]
+    TH = model.prior.sample((PATH_A_SWEEPS, B), generator=gen, dtype=torch.float32, device=dev)
+    zero_wide_counts()
+    with torch.no_grad():
+        fin = [torch.isfinite(model.loglike_batch(x)).float().mean() for x in TH]
+    torch.cuda.synchronize()
+    c = wide_counts()
+    check(c["celerite_wide_fwd_multi"] == PATH_A_SWEEPS and c["narrow"] == 0,
+          f"DRWCelerite many-model sweeps: launches {c}")
+    launches["celerite_wide_fwd_multi"] = c["celerite_wide_fwd_multi"]
+    Z = many_rows(model, drw_spec(dev, torch.float32), B, gen)
+    zero_wide_counts()
+    lp, grad = batch_value_and_grad(model.logpost_batch, Z)
+    lp2, _ = batch_value_and_grad(model.logpost_batch, Z + 0.01)
+    torch.cuda.synchronize()
+    c = wide_counts()
+    check(c["celerite_wide_fwd_aug_multi"] == 2 and c["celerite_wide_bwd_multi"] == 2
+          and c["narrow"] == 0, f"DRWCelerite many-model value and gradient: launches {c}")
+    check(bool(torch.isfinite(grad[torch.isfinite(lp)]).all()) and bool(torch.isfinite(lp).any()),
+          "DRWCelerite many-model gradient not finite")
+    launches["celerite_wide_fwd_aug_multi"] = c["celerite_wide_fwd_aug_multi"]
+    launches["celerite_wide_bwd_multi"] = c["celerite_wide_bwd_multi"]
+    spec32 = drw_spec(dev, torch.float32)
+    t = torch.as_tensor(spec32.t, dtype=torch.float32, device=dev)
+    inputs = [flagship_inputs(spec32, TABLES_BATCHES[1], gen, n_components=20, **DRW)
+              for _ in range(TABLES_SWEEPS)]
+    zero_wide_counts()
+    lls = [batched_loglike_tables(a, b, cc_, d, t, y, s2) for a, b, cc_, d, y, s2 in inputs]
+    torch.cuda.synchronize()
+    c = wide_counts()
+    check(c["celerite_wide_tables"] == TABLES_SWEEPS and c["narrow"] == 0,
+          f"DRWCelerite batched_loglike_tables sweeps: launches {c}")
+    share = float(torch.stack([torch.isfinite(x).float().mean() for x in lls]).mean())
+    check(share > 0.9, f"DRWCelerite table sweeps: finite share {share:.3f}")
+    launches["celerite_wide_tables"] = c["celerite_wide_tables"]
+    print(f"phase 22 paths: DRWCelerite many-model ({MANY_D} datasets x {MANY['num_chains']} "
+          f"chains) {PATH_A_SWEEPS} no-gradient sweeps (finite share "
+          f"{float(torch.stack(fin).mean()):.3f}) and two value+gradient evaluations, "
+          f"{TABLES_SWEEPS} batched_loglike_tables sweeps at B={TABLES_BATCHES[1]} (finite share "
+          f"{share:.4f}); wide launches {launches}")
+    print("phase 22 J > 32: ok")
+    return max_abs, launches
+
+
 def card_shared() -> bool:
     """Whether a second process may use the card: its compute mode is
     Default (not exclusive to one process, not prohibited)."""
@@ -2164,6 +2633,8 @@ def main(argv=None) -> int:
     post_launches = timed("19", phase_post_fit, dev, args.out)
     resume_launches = timed("20", phase_resume, dev, args.out)
     mesh_launches = timed("21", phase_multi_device, dev, args.out)
+    wide_times = timed("22a", phase_wide_times, dev, datasets)
+    wide_smc_launches = timed("22b", phase_wide_smc, dev, args.out)
     child = None if args.serial or not card_shared() else start_chees(args.out)
     try:
         if child is None:
@@ -2174,13 +2645,14 @@ def main(argv=None) -> int:
         nuts_launches = timed("16", phase_nuts_flagship, dev, args.out)
         timed("17", phase_builders, dev)
         builder_launches = timed("18", phase_builders_smc, dev, args.out)
+        wide_err, wide_path_launches = timed("22", phase_wide, dev, datasets)
         if child is not None:
             chees_launches, walls["9"] = finish_chees(*child)
     finally:
         if child is not None and child[0].poll() is None:
             child[0].kill()
             child[0].wait()
-    overlap = "" if child is None else " (9 in a child process beside 5, 12 and 15-18)"
+    overlap = "" if child is None else " (9 in a child process beside 5, 12, 15-18 and 22)"
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t_start:.1f} s; "
           f"phase wall_s{overlap} {walls}; "
           f"launches on the main paths: NS {{'celerite_fwd': {ns_launches}}}, "
@@ -2188,7 +2660,8 @@ def main(argv=None) -> int:
           f"{{'celerite_fwd_multi': {k2_launches}}}, run_inference_many {many_launches}, "
           f"batched_loglike_tables {{'celerite_tables': {k0_launches}}}, SMC {smc_launches}, "
           f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}, "
-          f"post-fit {post_launches}, resume {resume_launches}, multi-device {mesh_launches}")
+          f"post-fit {post_launches}, resume {resume_launches}, multi-device {mesh_launches}, "
+          f"DRWCelerite SMC (J=40) {wide_smc_launches}, J > 32 paths {wide_path_launches}")
 
     # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
     # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS,
@@ -2218,6 +2691,12 @@ def main(argv=None) -> int:
         "celerite_tables": (k0_launches, k0_err, k0_ms, k0_plain_ms,
                             tables_cost(TABLES_BATCHES[1])),
     }
+    # the wide forms at J = 40 (phase 22a's widths); launches on phase
+    # 22's paths: the DRWCelerite SMC fit (K1, K3/K4) and the entry points'
+    # sweeps (K2, the per-lane K3/K4, K0)
+    wide_launches = {**wide_smc_launches, **wide_path_launches}
+    for name, (ms, plain_ms, cost) in wide_times.items():
+        rows[name] = (wide_launches[name], wide_err[name], ms, plain_ms, cost)
     kernels = []
     for name, (launches, err, ms, plain_ms, cost) in rows.items():
         src, replaces = KERNELS[name]

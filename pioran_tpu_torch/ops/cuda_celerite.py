@@ -28,9 +28,14 @@ kernel ``_kernel`` (K0, launched by ``batched_loglike_pallas``) becomes
   (nor has the TPU kernel): its wrappers raise on an input that requires
   a gradient.
 
+Past ``NARROW_TERMS`` = 32 terms the kernels' wide forms run instead,
+from ``csrc/celerite_wide.cu``: one thread block a chain, a thread a row
+of the 2J x 2J state, up to ``MAX_TERMS`` terms.
+
 ``LAUNCHES`` (K1), ``MULTI_LAUNCHES`` (K2) and ``TABLES_LAUNCHES`` (K0)
 count kernel launches, so a run can show that its main path went through
-the kernels.
+the kernels; ``WIDE_LAUNCHES``, ``WIDE_MULTI_LAUNCHES`` and
+``WIDE_TABLES_LAUNCHES`` count those of the wide forms.
 """
 
 from __future__ import annotations
@@ -44,16 +49,20 @@ import torch
 from .. import _build
 from .celerite import exp_neg
 from .cuda_celerite_vjp import (
-    MAX_TERMS, _lanes, _masked, bwd, check_inputs, fwd_aug, live_steps, log2pi_terms)
+    MAX_TERMS, NARROW_TERMS, _call, _lanes, _masked, _scratch, _wide_lib, bwd, check_inputs,
+    fwd_aug, live_steps, log2pi_terms, wide_fwd_scratch)
 
 __all__ = ["batched_loglike", "batched_loglike_plain", "batched_loglike_multi",
            "batched_loglike_multi_plain", "build_tables", "loglike_from_tables",
            "loglike_from_tables_plain", "batched_loglike_tables", "tables_launch_shape",
-           "MAX_TERMS"]
+           "MAX_TERMS", "NARROW_TERMS"]
 
 LAUNCHES = 0
 MULTI_LAUNCHES = 0
 TABLES_LAUNCHES = 0
+WIDE_LAUNCHES = 0
+WIDE_MULTI_LAUNCHES = 0
+WIDE_TABLES_LAUNCHES = 0
 _LOG2PI = math.log(2.0 * math.pi)
 _LIB: Optional[ctypes.CDLL] = None
 _TABLES_LIB: Optional[ctypes.CDLL] = None
@@ -158,9 +167,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(a, b, c, d, t, y, sigma2, dt, n_valid=None):
-    """Run K1 (shared t) or K2 (per-lane t) on CUDA tensors; raise on what
-    they do not take."""
-    global LAUNCHES, MULTI_LAUNCHES
+    """Run K1 (shared t) or K2 (per-lane t) on CUDA tensors, their wide
+    forms past ``NARROW_TERMS`` terms; raise on what they do not take."""
+    global LAUNCHES, MULTI_LAUNCHES, WIDE_LAUNCHES, WIDE_MULTI_LAUNCHES
     dt, n_valid = check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid)
     per_lane = n_valid is not None
     B, J = a.shape
@@ -173,17 +182,24 @@ def _launch(a, b, c, d, t, y, sigma2, dt, n_valid=None):
     args.append(None if dt is None else dt.contiguous())
     args += [y.contiguous(), sigma2.contiguous()]
     args += [n_valid] if per_lane else []
-    lib = _lib()
-    name = "celerite_fwd_multi" if per_lane else "celerite_fwd"
+    args.append(out)
+    wide = J > NARROW_TERMS
+    if wide:
+        lib = _wide_lib()
+        errors = lib.celerite_wide_error_string
+        name = "celerite_wide_fwd_multi" if per_lane else "celerite_wide_fwd"
+        args.append(_scratch(B, wide_fwd_scratch(J, dtype), a))
+    else:
+        lib = _lib()
+        errors = lib.celerite_fwd_error_string
+        name = "celerite_fwd_multi" if per_lane else "celerite_fwd"
     fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[None if x is None else x.data_ptr() for x in args],
-                 out.data_ptr(), B, J, N, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: " + lib.celerite_fwd_error_string(err).decode())
-    if per_lane:
+    _call(fn, errors, name, dev, args, (B, J, N))
+    if wide and per_lane:
+        WIDE_MULTI_LAUNCHES += 1
+    elif wide:
+        WIDE_LAUNCHES += 1
+    elif per_lane:
         MULTI_LAUNCHES += 1
     else:
         LAUNCHES += 1
@@ -363,8 +379,8 @@ def tables_launch_shape(B: int, J: int, dtype=torch.float32) -> dict:
 
 
 def _check_tables(U, V, phi, y, sigma2, suma):
-    """Raise ``ValueError`` on what K0 does not take: an odd R, R > 64
-    (J > 32), a dtype other than float32/float64, mixed dtypes or
+    """Raise ``ValueError`` on what K0 does not take: an odd R, J = R / 2
+    > ``MAX_TERMS``, a dtype other than float32/float64, mixed dtypes or
     devices, or wrong shapes."""
     if U.dim() != 3:
         raise ValueError(f"U must be (N, R, B), got {tuple(U.shape)}")
@@ -374,7 +390,7 @@ def _check_tables(U, V, phi, y, sigma2, suma):
     if R // 2 > MAX_TERMS:
         raise ValueError(
             f"the CUDA celerite kernels take at most {MAX_TERMS} terms "
-            f"(one warp lane each), got J={R // 2}")
+            f"(one thread a row of the 2J x 2J state), got J={R // 2}")
     if U.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"float32 or float64 expected, got {U.dtype}")
     for name, x, shape in (("V", V, (N, R, B)), ("phi", phi, (N, R, B)), ("y", y, (B, N)),
@@ -386,18 +402,29 @@ def _check_tables(U, V, phi, y, sigma2, suma):
 
 
 def _launch_tables(U, V, phi, y, sigma2, suma, shape=None):
-    """Run K0 on CUDA tensors; raise on what it does not take. ``shape``
-    = (chains a block, steps a chunk) overrides the shape K0 picks from B
-    (chains 1, 2 or 4; steps 4, 8, 16 or 32)."""
-    global TABLES_LAUNCHES
+    """Run K0 on CUDA tensors, its wide form past ``NARROW_TERMS`` terms;
+    raise on what it does not take. ``shape`` = (chains a block, steps a
+    chunk) overrides the shape K0 picks from B (chains 1, 2 or 4; steps
+    4, 8, 16 or 32; the warp-per-chain form only)."""
+    global TABLES_LAUNCHES, WIDE_TABLES_LAUNCHES
     _check_tables(U, V, phi, y, sigma2, suma)
     N, R, B = U.shape
     out = torch.empty(B, dtype=U.dtype, device=U.device)
     if B == 0 or N == 0:
         return out
     args = [x.contiguous() for x in (U, V, phi, y, sigma2, suma)]
-    lib = _tables_lib()
     f32 = U.dtype == torch.float32
+    if R // 2 > NARROW_TERMS:
+        if shape is not None:
+            raise ValueError("a launch shape is the warp-per-chain K0's (J <= 32)")
+        lib = _wide_lib()
+        fn = lib.celerite_wide_tables_f32 if f32 else lib.celerite_wide_tables_f64
+        state = _scratch(B, wide_fwd_scratch(R // 2, U.dtype), U)
+        _call(fn, lib.celerite_wide_error_string, "celerite_wide_tables", U.device,
+              [*args, out, state], (B, R // 2, N))
+        WIDE_TABLES_LAUNCHES += 1
+        return out
+    lib = _tables_lib()
     if shape is None:
         fn, extra = (lib.celerite_tables_f32 if f32 else lib.celerite_tables_f64), ()
     else:

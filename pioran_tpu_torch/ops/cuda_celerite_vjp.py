@@ -26,15 +26,24 @@ CUDA tensors go to the kernels, or raise; CPU tensors go to
 (B, J, J) tensors that follow the TPU kernels statement by statement.
 ``chip_smoke.py`` holds the kernels against them on the card.
 
+Past ``NARROW_TERMS`` = 32 terms (one warp lane a term) the wrappers
+launch the wide forms of K3 and K4 in ``csrc/celerite_wide.cu`` instead,
+one thread block a chain and a thread a row of the 2J x 2J state, up to
+``MAX_TERMS``; that library also holds the wide K1, K2 and K0, which
+``ops/cuda_celerite.py`` launches. The residual tables are the same for
+both forms.
+
 There is no counterpart of the TPU code's VMEM tiling (``auto_tiles``,
 ``fits_vmem``), its scan fallback, or its ``SEG_STEPS`` launch
 segmentation: the tables live in device memory and one launch runs all N
 steps. K4 keeps the T blocks it recomputes for a chunk in shared memory,
 as the TPU kernel keeps them in VMEM; :func:`bwd_launch_shape` chooses
-the chains per block and the sub-chunk length that fit.
-``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count launches of the
-shared-grid kernels, ``FWD_AUG_MULTI_LAUNCHES`` and ``BWD_MULTI_LAUNCHES``
-those of the per-lane ones.
+the chains per block and the sub-chunk length that fit, and
+:func:`wide_bwd_shape` what the wide K4 keeps in shared memory and what
+in a device scratch. ``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count
+launches of the shared-grid kernels, ``FWD_AUG_MULTI_LAUNCHES`` and
+``BWD_MULTI_LAUNCHES`` those of the per-lane ones, and the ``WIDE_``
+counters those of the wide forms.
 """
 
 from __future__ import annotations
@@ -49,20 +58,28 @@ from .. import _build
 from .celerite import exp_neg
 
 __all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "residual_bytes",
-           "bwd_launch_shape", "check_inputs", "spacings", "live_steps", "log2pi_terms",
-           "KC", "MAX_TERMS"]
+           "bwd_launch_shape", "wide_fwd_scratch", "wide_bwd_shape", "check_inputs", "spacings",
+           "live_steps", "log2pi_terms", "KC", "MAX_TERMS", "NARROW_TERMS"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
-MAX_TERMS = 32  # one warp lane per celerite term
-KC = 8          # steps between T checkpoints
+NARROW_TERMS = 32  # the warp-per-chain kernels: one warp lane per celerite term
+MAX_TERMS = 128    # the wide kernels: one thread per row of the 2J x 2J state
+KC = 8             # steps between T checkpoints
+WIDE_SUB = 8       # the wide K4: steps of a chunk's T held at once, at most
 SMEM_BYTES = 232_448  # shared memory one block may use on the H100 (sm_90)
 H100_SMS = 132
+_WIDE_WARPS = 2 * MAX_TERMS // 32
 FWD_AUG_LAUNCHES = 0
 BWD_LAUNCHES = 0
 FWD_AUG_MULTI_LAUNCHES = 0
 BWD_MULTI_LAUNCHES = 0
+WIDE_FWD_AUG_LAUNCHES = 0
+WIDE_BWD_LAUNCHES = 0
+WIDE_FWD_AUG_MULTI_LAUNCHES = 0
+WIDE_BWD_MULTI_LAUNCHES = 0
 _LIB: Optional[ctypes.CDLL] = None
+_WIDE_LIB: Optional[ctypes.CDLL] = None
 
 Residuals = Tuple[torch.Tensor, ...]
 
@@ -94,9 +111,9 @@ def _lanes(t, dt, B, n_valid):
 
 
 def check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid=None):
-    """Raise ``ValueError`` on what the CUDA kernels do not take: J > 32,
-    a dtype other than float32/float64, mixed dtypes or devices, or wrong
-    shapes. ``t`` is (N,) shared by the chains or (B, N) per lane, with
+    """Raise ``ValueError`` on what the CUDA kernels do not take: J >
+    ``MAX_TERMS``, a dtype other than float32/float64, mixed dtypes or
+    devices, or wrong shapes. ``t`` is (N,) shared by the chains or (B, N) per lane, with
     ``dt`` (N-1,) or (B, N-1); ``n_valid`` (B,) goes with per-lane t only.
     Returns (dt cast to the working dtype or None, n_valid as int32 or
     None; per-lane t without n_valid gets N everywhere)."""
@@ -108,7 +125,7 @@ def check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid=None):
     if J > MAX_TERMS:
         raise ValueError(
             f"the CUDA celerite kernels take at most {MAX_TERMS} terms "
-            f"(one warp lane each), got J={J}")
+            f"(one thread a row of the 2J x 2J state), got J={J}")
     if a.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"float32 or float64 expected, got {a.dtype}")
     dev, dtype = a.device, a.dtype
@@ -171,6 +188,49 @@ def bwd_launch_shape(dtype: torch.dtype, J: int, kc: int, B: int = 1,
         ks -= 1
     cpb = max(1, min(4, -(-B // sms), SMEM_BYTES // warp_bytes(ks)))
     return cpb, ks, cpb * warp_bytes(ks)
+
+
+def wide_fwd_scratch(J: int, dtype: torch.dtype) -> int:
+    """Device scratch values a chain the wide forward kernels (K1, K2, K0
+    and K3 past 32 terms) need: 0 where the R x R state S (R = 2J) fits
+    the block's 232,448 bytes of shared memory beside the rows U, ec and W
+    and the reduction buffer, else R x R. The launch
+    (``fwd_smem_len`` in ``csrc/celerite_wide.cu``) lays shared memory out
+    by whether the scratch pointer is null, and refuses a layout that does
+    not fit.
+    """
+    item = torch.empty((), dtype=dtype).element_size()
+    R = 2 * J
+    return 0 if item * (3 * R + 2 * _WIDE_WARPS + R * R) <= SMEM_BYTES else R * R
+
+
+def wide_bwd_shape(J: int, kc: int, dtype: torch.dtype, B: int = 1,
+                   sms: int = H100_SMS) -> Tuple[int, int, int, int]:
+    """The wide K4's launch: (sub-chunk length ks, shared-memory bytes a
+    block, carry scratch values a chain, chunk scratch values a chain).
+
+    One block a chain, a thread a row of the R x R carry G (R = 2J). A
+    chunk of kc steps is swept in sub-chunks of ks = min(kc, 8) steps,
+    whose T blocks (three J x (J | 1) blocks a step) are recomputed from
+    the checkpoint. Shared memory holds the rows and the reduction buffer;
+    G goes there too where it fits. The T chunk joins it where it fits
+    beside G and the B chains do not outnumber the ``sms`` SMs; what
+    shared memory does not hold lives in the scratch. At J = 40 with more
+    chains than SMs, blocks that keep the chunk in the scratch, several to
+    an SM, ran faster on the H100 (PERF.md); at other J the placement is
+    not tuned. The launch (``bwd_smem_len`` in ``csrc/celerite_wide.cu``)
+    lays shared memory out by which scratch pointers are null, and refuses
+    a layout that does not fit.
+    """
+    item = torch.empty((), dtype=dtype).element_size()
+    R = 2 * J
+    ks = min(kc, WIDE_SUB)
+    rows = 7 * R + 3 * _WIDE_WARPS
+    carry, chunk = R * R, 3 * ks * J * (J | 1)
+    carry_smem = item * (rows + carry) <= SMEM_BYTES
+    chunk_smem = B <= sms and item * (rows + carry * carry_smem + chunk) <= SMEM_BYTES
+    smem = item * (rows + carry * carry_smem + chunk * chunk_smem)
+    return ks, smem, 0 if carry_smem else carry, 0 if chunk_smem else chunk
 
 
 # ---------------------------------------------------------------------------
@@ -423,14 +483,37 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _call(fn, lib, name, dev, args, ints):
+def _wide_lib() -> ctypes.CDLL:
+    """The wide kernels' library (``csrc/celerite_wide.cu``): K1, K2, K0,
+    K3 and K4 past ``NARROW_TERMS`` terms."""
+    global _WIDE_LIB
+    if _WIDE_LIB is None:
+        lib = _build.load("celerite_wide")
+        # pointers, then (B, J, N[, kc[, ks]]); the per-lane entries take
+        # one more pointer, the int32 n_valid
+        for name, nptr, nint in (("fwd", 10, 3), ("fwd_multi", 11, 3), ("tables", 8, 3),
+                                 ("fwd_aug", 17, 4), ("fwd_aug_multi", 18, 4),
+                                 ("bwd", 24, 5), ("bwd_multi", 25, 5)):
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"celerite_wide_{name}_{dt}")
+                fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+        lib.celerite_wide_error_string.argtypes = [ctypes.c_int]
+        lib.celerite_wide_error_string.restype = ctypes.c_char_p
+        _WIDE_LIB = lib
+    return _WIDE_LIB
+
+
+def _call(fn, errors, name, dev, args, ints):
+    """Launch the C entry ``fn`` on ``dev``'s current stream with the
+    tensors ``args`` (None: a null pointer) and the ints ``ints``; raise
+    with ``errors(code)`` (the library's error string) if it fails."""
     ptrs = [None if x is None else x.data_ptr() for x in args]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, *ints, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.celerite_adjoint_error_string(err).decode())
+        raise RuntimeError(f"{name} launch failed: " + errors(err).decode())
 
 
 def _check_kc(kc):
@@ -445,8 +528,15 @@ def _entry(lib, name, dtype, per_lane):
                    + ("_f32" if dtype == torch.float32 else "_f64"))
 
 
+def _scratch(B, values, x):
+    """A device scratch of ``values`` a chain for B chains, or None when
+    the kernel keeps that part in shared memory."""
+    return torch.empty(B * values, dtype=x.dtype, device=x.device) if values else None
+
+
 def _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid):
     global FWD_AUG_LAUNCHES, FWD_AUG_MULTI_LAUNCHES
+    global WIDE_FWD_AUG_LAUNCHES, WIDE_FWD_AUG_MULTI_LAUNCHES
     dt, n_valid = check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid)
     kc = _check_kc(kc)
     per_lane = n_valid is not None
@@ -464,10 +554,20 @@ def _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid):
     args += [y.contiguous(), sigma2.contiguous()]
     args += [n_valid] if per_lane else []
     args += [ll, *res]
-    lib = _lib()
-    fn = _entry(lib, "celerite_fwd_aug", a.dtype, per_lane)
-    _call(fn, lib, "celerite_fwd_aug", a.device, args, (B, J, N, kc))
-    if per_lane:
+    wide = J > NARROW_TERMS
+    if wide:
+        lib, name = _wide_lib(), "celerite_wide_fwd_aug"
+        errors = lib.celerite_wide_error_string
+        args.append(_scratch(B, wide_fwd_scratch(J, a.dtype), a))
+    else:
+        lib, name = _lib(), "celerite_fwd_aug"
+        errors = lib.celerite_adjoint_error_string
+    _call(_entry(lib, name, a.dtype, per_lane), errors, name, a.device, args, (B, J, N, kc))
+    if wide and per_lane:
+        WIDE_FWD_AUG_MULTI_LAUNCHES += 1
+    elif wide:
+        WIDE_FWD_AUG_LAUNCHES += 1
+    elif per_lane:
         FWD_AUG_MULTI_LAUNCHES += 1
     else:
         FWD_AUG_LAUNCHES += 1
@@ -475,7 +575,8 @@ def _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid):
 
 
 def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid):
-    global BWD_LAUNCHES, BWD_MULTI_LAUNCHES
+    """Run K4 (its wide form past ``NARROW_TERMS`` terms)."""
+    global BWD_LAUNCHES, BWD_MULTI_LAUNCHES, WIDE_BWD_LAUNCHES, WIDE_BWD_MULTI_LAUNCHES
     dt, n_valid = check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid)
     kc = _check_kc(kc)
     per_lane = n_valid is not None
@@ -500,17 +601,27 @@ def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid):
         coefs = [x.zero_() for x in coefs]
         return (*coefs, rows[2].zero_() if per_lane else a.new_zeros(N),
                 rows[0].zero_(), rows[1].zero_())
-    cpb, ks, _ = bwd_launch_shape(a.dtype, J, kc, B,
-                                  torch.cuda.get_device_properties(a.device).multi_processor_count)
     args = [x.contiguous() for x in (a, b, c, d, t)]
     args.append(None if dt is None else dt.contiguous())
     args += [g.contiguous()]
     args += [n_valid] if per_lane else []
     args += [*(x.contiguous() for x in residuals), *coefs, *rows]
-    lib = _lib()
-    fn = _entry(lib, "celerite_bwd", a.dtype, per_lane)
-    _call(fn, lib, "celerite_bwd", a.device, args, (B, J, N, kc, ks, cpb))
-    if per_lane:
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    if J > NARROW_TERMS:
+        ks, _, carry, chunk = wide_bwd_shape(J, kc, a.dtype, B, sms)
+        args += [_scratch(B, carry, a), _scratch(B, chunk, a)]
+        lib, name, ints = _wide_lib(), "celerite_wide_bwd", (B, J, N, kc, ks)
+        errors = lib.celerite_wide_error_string
+    else:
+        cpb, ks, _ = bwd_launch_shape(a.dtype, J, kc, B, sms)
+        lib, name, ints = _lib(), "celerite_bwd", (B, J, N, kc, ks, cpb)
+        errors = lib.celerite_adjoint_error_string
+    _call(_entry(lib, name, a.dtype, per_lane), errors, name, a.device, args, ints)
+    if J > NARROW_TERMS and per_lane:
+        WIDE_BWD_MULTI_LAUNCHES += 1
+    elif J > NARROW_TERMS:
+        WIDE_BWD_LAUNCHES += 1
+    elif per_lane:
         BWD_MULTI_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
@@ -521,8 +632,9 @@ def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid):
 def fwd_aug(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC, n_valid=None):
     """K3: ``(ll (B,), residuals)``. ``t`` (N,) shared, or (B, N) per lane
     with ``dt`` (B, N-1) and ``n_valid`` (B,). CUDA tensors launch the
-    kernel (or raise ``ValueError`` on J > 32, a wrong dtype or shape);
-    CPU tensors run :func:`fwd_aug_plain`."""
+    kernel, its wide form past ``NARROW_TERMS`` terms (or raise
+    ``ValueError`` on J > ``MAX_TERMS``, a wrong dtype or shape); CPU
+    tensors run :func:`fwd_aug_plain`."""
     if a.is_cuda:
         return _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid)
     return fwd_aug_plain(a, b, c, d, t, y, sigma2, dt, kc, n_valid)

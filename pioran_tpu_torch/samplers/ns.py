@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["NSResult", "run_ns", "run_ns_resumable", "equal_weight_indices"]
+__all__ = ["NSResult", "run_ns", "run_ns_resumable", "ns_init", "equal_weight_indices"]
 
 
 class NSResult(NamedTuple):
@@ -49,6 +49,19 @@ class NSResult(NamedTuple):
     #   Feed to utils.insertion.insertion_order_test.
 
 
+def ns_init(loglike_u_batch: Callable, generator: torch.Generator, num_live: int, dim: int,
+            dtype: torch.dtype = torch.float64, n_delete: int = 128):
+    """The initial live set, ``(live_u (num_live, dim), live_logl
+    (num_live,))``: uniform draws in the unit cube from ``generator`` (on
+    its device), their log-likelihoods computed in sweeps of width
+    ``n_delete``, like every later sweep of :func:`run_ns`."""
+    live_u = torch.rand((num_live, dim), generator=generator, dtype=dtype,
+                        device=generator.device)
+    live_logl = torch.cat([loglike_u_batch(live_u[i:i + n_delete])
+                           for i in range(0, num_live, n_delete)])
+    return live_u, live_logl
+
+
 def run_ns(
     loglike_u_batch: Callable,
     generator: torch.Generator,
@@ -62,6 +75,7 @@ def run_ns(
     n_expand: int = 4,
     n_shrink: int = 8,
     dtype: torch.dtype = torch.float64,
+    live_init=None,
 ) -> NSResult:
     """Nested sampling of ``loglike_u_batch`` ((B, dim) unit cube -> (B,)).
 
@@ -75,9 +89,13 @@ def run_ns(
     2 ``n_expand`` + ``n_shrink`` sweeps each) or ``"rwm"``
     (``num_mcmc`` preconditioned random-walk Metropolis steps, one sweep
     each). Posterior samples: :func:`equal_weight_indices`.
+
+    ``live_init``: ``(live_u (num_live, dim), live_logl (num_live,))`` to
+    start from (cast to ``dtype``), as :func:`ns_init` draws it; None
+    draws it from ``generator``.
     """
     return _run(loglike_u_batch, generator, num_live, dim, n_delete, num_mcmc, max_iters,
-                frac_remain, move, n_expand, n_shrink, dtype)
+                frac_remain, move, n_expand, n_shrink, dtype, live_init=live_init)
 
 
 def run_ns_resumable(
@@ -120,14 +138,15 @@ def run_ns_resumable(
 
 
 def _run(loglike_u_batch, generator, num_live, dim, n_delete, num_mcmc, max_iters,
-         frac_remain, move, n_expand, n_shrink, dtype, mgr=None) -> NSResult:
+         frac_remain, move, n_expand, n_shrink, dtype, mgr=None, live_init=None) -> NSResult:
     """The iteration loop of :func:`run_ns`; with a checkpoint manager it
     starts from the latest checkpoint and saves after each iteration."""
     K, D = num_live, n_delete
-    device = generator.device
-    live_u = torch.rand((K, dim), generator=generator, dtype=dtype, device=device)
-    # in sweeps of width n_delete, like every later sweep
-    live_logl = torch.cat([loglike_u_batch(live_u[i:i + D]) for i in range(0, K, D)])
+    if live_init is None:
+        live_u, live_logl = ns_init(loglike_u_batch, generator, K, dim, dtype, D)
+    else:
+        live_u, live_logl = (torch.as_tensor(x, device=generator.device).to(dtype)
+                             for x in live_init)
 
     step = _make_ns_step(loglike_u_batch, K, D, dim, dtype, num_mcmc, move,
                          n_expand, n_shrink)

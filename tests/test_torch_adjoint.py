@@ -103,7 +103,7 @@ def test_plain_adjoint_matches_pallas(J, with_dt):
 
 
 @pytest.mark.parametrize("with_dt", [False, True])
-@pytest.mark.parametrize("J", [4, 8])
+@pytest.mark.parametrize("J", [4, 8, 40, 70])
 def test_plain_adjoint_matches_scan_vjp(J, with_dt):
     """The seven cotangents against jax.vjp of the scan, with a non-PD
     lane whose ll is -inf and whose gradient is exactly zero. The scan
@@ -238,15 +238,29 @@ def test_residual_bytes():
 @pytest.mark.parametrize("kc", [1, 2, 3, 4, 8, 16, 489])
 def test_bwd_launch_shape_fits_shared_memory(dtype, kc):
     """Every J the kernels take, at every batch: the block's shared memory
-    fits the H100's 232,448 bytes, with at least one chain a block and a
-    sub-chunk of 1 <= ks <= kc steps (at most 32: one lane keeps a step's
-    per-step cotangents)."""
-    for J in range(1, 33):
+    fits the H100's 232,448 bytes. Up to 32 terms (the warp-per-chain K4):
+    at least one chain a block and a sub-chunk of 1 <= ks <= kc steps (at
+    most 32: one lane keeps a step's per-step cotangents). Past 32 (the
+    wide K4 and forward kernels, a block a chain): ks = min(kc, 8), and
+    what shared memory does not hold in the device scratch; the forward
+    state of the DRWCelerite flagship (J = 40) fits shared memory, that
+    of float64 at J = 100 does not."""
+    for J in range(1, vjp.NARROW_TERMS + 1):
         for batch in (1, 16, 37, 512, 1024, 4096):
             cpb, ks, smem = vjp.bwd_launch_shape(dtype, J, kc, batch)
             assert 1 <= cpb <= 4 and 1 <= ks <= min(kc, 32)
             assert 0 < smem <= vjp.SMEM_BYTES and smem % cpb == 0
             assert cpb <= -(-batch // vjp.H100_SMS)  # small batches spread over the SMs
+    for J in range(vjp.NARROW_TERMS + 1, vjp.MAX_TERMS + 1):
+        R = 2 * J
+        for batch in (1, 1024):
+            ks, smem, carry, chunk = vjp.wide_bwd_shape(J, kc, dtype, batch)
+            assert ks == min(kc, vjp.WIDE_SUB) and 0 < smem <= vjp.SMEM_BYTES
+            assert carry in (0, R * R) and chunk in (0, 3 * ks * J * (J | 1))
+            assert chunk or batch <= vjp.H100_SMS  # more chains than SMs: occupancy first
+        assert vjp.wide_fwd_scratch(J, dtype) in (0, R * R)
+    assert vjp.wide_fwd_scratch(40, dtype) == 0
+    assert vjp.wide_fwd_scratch(100, torch.float64) == 200 * 200
 
 
 def test_bwd_launch_shape_choices():

@@ -43,6 +43,8 @@ def _torch(*xs, dtype=torch.float64):
     (5, 3, 70),    # J not a multiple of 8, N not a multiple of the chunk
     (4, 8, 64),    # aligned
     (3, 20, 41),   # the flagship J
+    (3, 40, 41),   # past 32 terms: the DRWCelerite flagship (20 components)
+    (2, 70, 23),   # ... at 35 components
 ])
 def test_plain_matches_pallas_and_scan(B, J, N, with_dt):
     a, b, c, d, t, y, s2 = _problem(B, J, N, seed=B + J)
@@ -99,10 +101,12 @@ def test_backward_raises():
 
 
 def test_wrapper_rejects_more_than_32_terms():
-    """J > 32 does not fit the warp-per-chain kernel: the wrapper raises
-    before touching the card."""
-    a, b, c, d, t, y, s2 = _torch(*_problem(2, 33, 10))
-    with pytest.raises(ValueError, match="at most 32"):
+    """Past 32 terms the wide kernels take over, up to MAX_TERMS; more
+    than that, the wrapper raises before touching the card, naming the
+    limit."""
+    too_many = cuda_celerite.MAX_TERMS + 1
+    a, b, c, d, t, y, s2 = _torch(*_problem(2, too_many, 10))
+    with pytest.raises(ValueError, match=f"at most {cuda_celerite.MAX_TERMS} terms"):
         cuda_celerite._launch(a, b, c, d, t, y, s2, None)
 
 

@@ -19,6 +19,7 @@ import torch
 import pioran_tpu_torch
 from pioran_tpu import inference as jinf
 from pioran_tpu_torch import config, inference as tinf
+from pioran_tpu_torch.samplers.chees import batch_value_and_grad
 
 torch.set_num_threads(1)
 
@@ -35,12 +36,41 @@ def _simu(n=None):
     return A[:, 0], A[:, 1], A[:, 2], xbar, va
 
 
-@pytest.mark.parametrize("kwargs", [
-    {},
-    {"use_c": True, "is_integrated_power": False, "basis_function": "DRWCelerite",
-     "n_components": 10},
-], ids=["flagship", "use_c-variance-drw"])
-def test_loglike_batch_matches_jax(kwargs):
+# the DRWCelerite flagship (20 components, two terms each: J = 40) at the
+# importance-sampling referee's mean on the reference's 485-point subset:
+# the JAX package's value on the CPU in float64
+DRW_REFEREE_LL64 = 1021.110678373424
+
+
+@pytest.mark.parametrize("kwargs,anchor", [
+    ({}, None),
+    ({"use_c": True, "is_integrated_power": False, "basis_function": "DRWCelerite",
+      "n_components": 10}, None),
+    ({"basis_function": "DRWCelerite", "n_components": 20}, DRW_REFEREE_LL64),
+], ids=["flagship", "use_c-variance-drw", "drw-20"])
+def test_loglike_batch_matches_jax(kwargs, anchor):
+    """64 prior draws on simu.txt against the JAX package's batch; with an
+    anchor (J = 40, past the warp-per-chain kernels' 32 terms), the value
+    at the referee mean on the 485-point subset and the gradient of
+    logpost_batch there and at two prior draws against jax.grad (1e-8 per
+    row)."""
+    if anchor is not None:
+        sub = _subset()
+        jspec = jinf.single_bending_model(*sub, **kwargs)
+        tspec = tinf.single_bending_model(*sub, device="cpu", **kwargs)
+        with open(os.path.join(DATA, "simu_single", "is_referee.json")) as fh:
+            mean = np.asarray(json.load(fh)["is_mean"])
+        ll = float(tspec.loglike_batch(torch.as_tensor(mean[None]))[0])
+        assert abs(ll / anchor - 1.0) <= 1e-12
+        U = np.random.default_rng(0).uniform(0.1, 0.9, (2, jspec.prior.dim))
+        th = np.concatenate([mean[None], np.asarray(jax.vmap(jspec.prior.transform)(U))])
+        Z = np.array(jax.vmap(jspec.prior.to_unconstrained)(jnp.asarray(th)))
+        vg = jax.jit(jax.value_and_grad(jspec.logpost_unconstrained))
+        g_ref = np.stack([np.asarray(vg(jnp.asarray(z))[1]) for z in Z])
+        _, g = batch_value_and_grad(tspec.logpost_batch, torch.as_tensor(Z))
+        rel = np.linalg.norm(g.numpy() - g_ref, axis=1) / np.linalg.norm(g_ref, axis=1)
+        assert np.max(rel) <= 1e-8
+        return
     data = _simu()
     jspec = jinf.single_bending_model(*data, **kwargs)
     tspec = tinf.single_bending_model(*data, device="cpu", **kwargs)
@@ -61,6 +91,16 @@ def test_loglike_batch_matches_jax(kwargs):
     # package's own fused kernel and scan differ by 7e-11 at such a row.
     assert np.median(rel) <= 1e-13
     assert np.max(rel) <= 5e-10
+
+
+def _subset():
+    """The reference's 485-point light curve and its #mean: header."""
+    path = os.path.join(DATA, "simu_single", "simu_single_subset_time_series.txt")
+    with open(path) as fh:
+        line = next(x for x in fh if x.startswith("#mean: "))
+    xbar, va = (float(x) for x in line[len("#mean: "):].split(" va: "))
+    A = np.loadtxt(path)
+    return A[:, 0], A[:, 1], A[:, 2], xbar, va
 
 
 def test_flagship_anchor():

@@ -92,12 +92,14 @@ def test_logl_masked_matches_jax(with_dt):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-10)
 
 
-@pytest.mark.parametrize("with_dt", [False, True])
-def test_multi_plain_matches_pallas_and_scan(with_dt):
+@pytest.mark.parametrize("with_dt,j", [(False, J), (True, J), (True, 40)],
+                         ids=["False", "True", "True-J40"])
+def test_multi_plain_matches_pallas_and_scan(with_dt, j):
     """K2's plain version and the CPU dispatcher against the Pallas
     multi-dataset kernel (interpret mode) and the masked scan; lane 0 is
-    not positive definite and gives -inf."""
-    args, DT = _ragged(seed=2, non_pd=True)
+    not positive definite and gives -inf. J = 40: past 32 terms, the
+    DRWCelerite flagship's width."""
+    args, DT = _ragged(seed=2, non_pd=True, j=j)
     jargs = [jnp.asarray(x) for x in args]
     jnv, jdt = jnp.asarray(NV, float), jnp.asarray(DT) if with_dt else None
     pallas = np.asarray(batched_loglike_pallas_multi(*jargs, n_valid=jnv, dt=jdt, chunk=16,

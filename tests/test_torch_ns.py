@@ -152,3 +152,29 @@ def test_insertion_test_copy_agrees(kind):
     for k in ref:
         a, b = out[k], ref[k]
         assert a == b or (isinstance(a, float) and math.isnan(a) and math.isnan(b)), k
+
+
+def test_run_ns_from_a_given_live_set_matches_jax():
+    """Both packages' run_ns from one live set drawn with numpy: the first
+    deletion takes the same points, and each evidence meets the toy's
+    gate (the replacements' random streams differ). ns_init draws a set
+    of that layout from the generator."""
+    rng = np.random.default_rng(11)
+    live_u = rng.uniform(size=(256, DIM))
+    live_logl = np.array(_jloglike(jnp.asarray(live_u)))
+    kw = dict(num_live=256, dim=DIM, n_delete=32, num_mcmc=4, max_iters=400, frac_remain=1e-3)
+    ref = jns.run_ns(_jloglike, jax.random.PRNGKey(4),
+                     live_init=(jnp.asarray(live_u), jnp.asarray(live_logl)), **kw)
+    res = tns.run_ns(_tloglike, torch.Generator().manual_seed(4),
+                     live_init=(torch.as_tensor(live_u), torch.as_tensor(live_logl)), **kw)
+    np.testing.assert_array_equal(res.dead_u[:32].numpy(), np.asarray(ref.dead_u)[:32])
+    np.testing.assert_array_equal(res.dead_logl[:32].numpy(), np.asarray(ref.dead_logl)[:32])
+    for out in (res, ref):
+        err = float(out.logZ_err)
+        assert 0.0 < err < 0.3
+        assert abs(float(out.logZ) - LOGZ_TRUE) < 3 * err
+    assert abs(float(res.logZ) - float(ref.logZ)) < 3 * math.hypot(float(res.logZ_err),
+                                                                    float(ref.logZ_err))
+    u, logl = tns.ns_init(_tloglike, torch.Generator().manual_seed(4), 64, DIM, n_delete=16)
+    assert u.shape == (64, DIM) and u.dtype == torch.float64
+    torch.testing.assert_close(logl, _tloglike(u), rtol=0, atol=0)

@@ -129,12 +129,14 @@ def test_tables_checks_what_the_kernel_does_not_take(what):
     y, s2, suma = (x.double() for x in (y, s2, suma))
     if what == "odd-R":
         U, V, phi = (x[:, :3] for x in (U, V, phi))
-    elif what == "J>32":
-        U, V, phi = (torch.zeros(10, 66, 3, dtype=torch.float64) for _ in range(3))
+    elif what == "J>32":  # past the wide kernels' limit too
+        R = 2 * (cuda_celerite.MAX_TERMS + 1)
+        U, V, phi = (torch.zeros(10, R, 3, dtype=torch.float64) for _ in range(3))
     elif what == "dtype":
         y = y.float()
     else:
         suma = suma[:2]
-    with pytest.raises(ValueError, match={"odd-R": "even R", "J>32": "at most 32",
+    with pytest.raises(ValueError, match={"odd-R": "even R",
+                                          "J>32": f"at most {cuda_celerite.MAX_TERMS}",
                                           "dtype": "y", "shape": "suma"}[what]):
         cuda_celerite._check_tables(U, V, phi, y, s2, suma)
