@@ -10,8 +10,10 @@ It builds the CUDA kernels from ``pioran_tpu_torch/csrc`` with nvcc
 ``celerite_fwd_aug`` and ``celerite_bwd``; their per-lane forms for
 ragged per-chain time grids: K2 ``celerite_fwd_multi``,
 ``celerite_fwd_aug_multi`` and ``celerite_bwd_multi``; K0, the
-table-streaming forward ``celerite_tables``; and the wide forms of all
-seven past 32 terms, ``celerite_wide_*``), checks each against its
+table-streaming forward ``celerite_tables``; the carry entries of K1,
+K3 and K4 for one block of a series split along time, ``*_carry``; and
+the wide forms of all ten past 32 terms, ``celerite_wide_*``), checks
+each against its
 plain PyTorch version, and drives the port's main paths with
 the flagship single-bending model (J = 20): on the reference's 485-point
 light curve, nested sampling (``run_inference(sampler="ns")``, 1024 live
@@ -58,10 +60,22 @@ plain version at J = 40, 70 and 100 (J = 40 also at the fit's 1024
 particles) and the entry points that no sampler
 runs here: the DRWCelerite many-model's sweeps and gradient (the wide K2
 and per-lane K3/K4) and ``batched_loglike_tables`` (the wide K0) (22).
+Then the time-sharded scan (phase 23, ``parallel/seq_scan.py``): the
+carry entries of K1, K3 and K4 (``celerite_fwd_carry``,
+``celerite_fwd_aug_carry``, ``celerite_bwd_carry`` and their wide forms),
+each chained over 4 blocks of a series of 2^14 points through the ring's
+one-block helper and held against one launch of the entry without a carry
+(float64 1e-9) and, at 2^9 points, against the chained plain loops (23a),
+their times beside the entries without a carry (23c), and
+``single_bending_model(seq_mesh=)`` on a one-rank NCCL group, SHO (J = 20)
+and DRWCelerite (J = 40) on a simulated light curve of 2^15 points,
+against the spec without ``seq_mesh`` (float64 1e-12), with the plain
+loops made to raise (23b). ``--seed`` seeds its series (numpy).
 
 The phases run in this order: the build, the kernel checks and timings
 (2-4, 6-8, 10, 11, 13), SMC, the post-fit path, resume, the multi-device
-code and the wide kernels' times and fit (14, 19-21, 22a, 22b); then
+code, the wide kernels' times and fit and the seq scan (14, 19-21, 22a,
+22b, 23); then
 phase 9, the ChEES fit, starts in a child process of this script
 (``--only-chees``) and runs on the same card while this process runs NS,
 the multi-dataset run, NUTS, the other builders and the wide kernels'
@@ -116,6 +130,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_wide_fwd_aug_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
     "celerite_wide_bwd_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
     "celerite_wide_tables": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
+    # the carry entries (a block of a split series), narrow and wide, of
+    # the TPU kernels whose carry refs they port
+    "celerite_fwd_carry": (FWD_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
+    "celerite_fwd_aug_carry": (ADJOINT_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
+    "celerite_bwd_carry": (ADJOINT_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
+    "celerite_wide_fwd_carry": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
+    "celerite_wide_fwd_aug_carry": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
+    "celerite_wide_bwd_carry": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
 }
 PHASE2_BATCHES = (128, 4096, 1000, 1024)  # NS sweep, final sweep, ragged edge, SMC sweep
 PHASE2_TIMED = (128, 1024, 4096)
@@ -334,7 +356,8 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
-    libs = ("celerite_fwd", "celerite_adjoint", "celerite_tables", "celerite_wide")
+    libs = ("celerite_fwd", "celerite_adjoint", "celerite_adjoint_carry", "celerite_tables",
+            "celerite_wide")
     t0 = time.perf_counter()
     _build.load_all(libs)  # one nvcc per source, started together
     wall = time.perf_counter() - t0
@@ -2538,6 +2561,432 @@ def phase_wide(dev, datasets):
     return max_abs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the time-sharded scan through the carry entries of K1, K3, K4
+# ---------------------------------------------------------------------------
+
+SEQ_N = 2**14            # 23a: a series split into SEQ_BLOCKS blocks, against one launch
+SEQ_SHORT_N = 2**9       # 23a: the same against the chained plain loops
+SEQ_BLOCKS = 4
+SEQ_SHAPES = ((20, 64), (40, 16))  # (J, B): the warp-per-chain and the wide forms
+SEQ_BUILDER_N = 2**15    # 23b: the builders' simulated light curve
+SEQ_BUILDER = (("SHO", 20, 64), ("DRWCelerite", 40, 16))  # basis, J, B
+# the carry entries' counters: kernel name -> (module, counter)
+CARRY_COUNTERS = {
+    "celerite_fwd_carry": ("cc", "CARRY_LAUNCHES"),
+    "celerite_fwd_aug_carry": ("vjp", "FWD_AUG_CARRY_LAUNCHES"),
+    "celerite_bwd_carry": ("vjp", "BWD_CARRY_LAUNCHES"),
+    "celerite_wide_fwd_carry": ("cc", "WIDE_CARRY_LAUNCHES"),
+    "celerite_wide_fwd_aug_carry": ("vjp", "WIDE_FWD_AUG_CARRY_LAUNCHES"),
+    "celerite_wide_bwd_carry": ("vjp", "WIDE_BWD_CARRY_LAUNCHES"),
+}
+# every other kernel counter, which the seq path must leave at 0
+OTHER_COUNTERS = (("cc", "LAUNCHES"), ("cc", "MULTI_LAUNCHES"), ("cc", "TABLES_LAUNCHES"),
+                  ("cc", "WIDE_LAUNCHES"), ("cc", "WIDE_MULTI_LAUNCHES"),
+                  ("cc", "WIDE_TABLES_LAUNCHES"), ("vjp", "FWD_AUG_LAUNCHES"),
+                  ("vjp", "BWD_LAUNCHES"), ("vjp", "FWD_AUG_MULTI_LAUNCHES"),
+                  ("vjp", "BWD_MULTI_LAUNCHES"), ("vjp", "WIDE_FWD_AUG_LAUNCHES"),
+                  ("vjp", "WIDE_BWD_LAUNCHES"), ("vjp", "WIDE_FWD_AUG_MULTI_LAUNCHES"),
+                  ("vjp", "WIDE_BWD_MULTI_LAUNCHES"))
+
+
+def _counter_modules():
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+
+    return {"cc": cc, "vjp": vjp}
+
+
+def carry_counts():
+    """The carry entries' launch counters, and every other kernel's total
+    (``others``)."""
+    mods = _counter_modules()
+    out = {k: getattr(mods[m], c) for k, (m, c) in CARRY_COUNTERS.items()}
+    out["others"] = sum(getattr(mods[m], c) for m, c in OTHER_COUNTERS)
+    return out
+
+
+def zero_carry_counts():
+    mods = _counter_modules()
+    for m, c in (*CARRY_COUNTERS.values(), *OTHER_COUNTERS):
+        setattr(mods[m], c, 0)
+
+
+def seq_inputs(J, B, N, seed, dev, dtype):
+    """(a, b, c, d, t, y, sigma2) of B chains of J terms on N points, and
+    the spacings dt (N - 1,) in float64, from a numpy generator seeded
+    with ``seed``; positive-definite terms (|b d| < a c), lane 0 forced
+    non-positive-definite."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, N / 4, N))
+    a = np.abs(rng.normal(0.5, 0.2, (B, J))) / J
+    c = np.abs(rng.normal(0.5, 0.2, (B, J)))
+    d = np.abs(rng.normal(0.3, 0.1, (B, J)))
+    b = 0.5 * a * c / (d + 1.0) * rng.uniform(-1, 1, (B, J))
+    y = np.sin(t / 10)[None, :] + rng.normal(0, 0.3, (B, N))
+    s2 = 0.05 + 0.01 * np.abs(rng.normal(size=(B, N)))
+    a[0] = -50.0 * a[0]
+    args = [torch.as_tensor(x, dtype=dtype, device=dev) for x in (a, b, c, d, t, y, s2)]
+    return args, torch.as_tensor(np.diff(t), device=dev)
+
+
+def seq_chain(args, dt64, nb, grad, g=None, plain=False):
+    """The series split into ``nb`` blocks, each one call of the carry
+    entries from the carry the block before ended with: K1's (``grad``
+    False) or K3's, through ``seq_scan.run_block``, the helper the ring
+    calls (with ``plain``, the plain versions' carry forms instead); with
+    ``g``, K4's carry entry back over the blocks. Returns (ll, residual
+    tables concatenated over the blocks or None, the 7 cotangents or
+    None)."""
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+    from pioran_tpu_torch.parallel.seq_scan import run_block
+
+    a, b, c, d, t, y, s2 = args
+    B, J = a.shape
+    N = t.shape[0]
+    K = N // nb
+    dtg = torch.cat([dt64.new_zeros(1), dt64]).to(a.dtype)
+    blocks = [slice(k * K, (k + 1) * K) for k in range(nb)]
+    carry = vjp.neutral_carry(B, J, a)
+    parts, saved = [], []
+    for sl in blocks:
+        xs = (a, b, c, d, t[sl], y[:, sl], s2[:, sl], dtg[sl], carry)
+        if not plain:
+            p, carry, res = run_block(*xs, grad)
+        elif grad:
+            p, carry, res = vjp.fwd_aug_plain(*xs[:8], carry=carry)
+        else:
+            (p, carry), res = cc._plain(*xs[:8], None, carry=carry), None
+        parts.append(p)
+        saved.append(res)
+    logdet, quad, minD = parts[0][:, 0], parts[0][:, 1], parts[0][:, 2]
+    for p in parts[1:]:
+        logdet, quad, minD = logdet + p[:, 0], quad + p[:, 1], torch.minimum(minD, p[:, 2])
+    ll = -0.5 * (logdet + quad + N * math.log(2 * math.pi))
+    ll = torch.where((minD > 0) & torch.isfinite(ll), ll, torch.full_like(ll, -math.inf))
+    if not grad:
+        return ll, None, None
+    res = [torch.cat([r[i] for r in saved], dim=1) for i in range(7)]
+    if g is None:
+        return ll, res, None
+    g = torch.where(torch.isfinite(ll), g, torch.zeros_like(g))
+    ain = a.new_zeros(B, vjp.adjoint_width(J))
+    outs = [None] * nb
+    for k in reversed(range(nb)):
+        sl = blocks[k]
+        xs = (a, b, c, d, t[sl], y[:, sl], s2[:, sl], saved[k], g, dtg[sl], ain)
+        outs[k] = (vjp.bwd_plain(*xs[:10], carry=ain) if plain else vjp.bwd_carry(*xs))
+        ain = outs[k][-1]
+    coefs = [sum(o[i] for o in outs) for i in range(4)]
+    tb = torch.cat([o[4] for o in outs])
+    dtb = torch.cat([o[5] for o in outs])
+    tbar = tb + dtb - torch.cat([dtb[1:], dtb.new_zeros(1)])
+    return ll, res, (*coefs, tbar, torch.cat([o[6] for o in outs], dim=1),
+                     torch.cat([o[7] for o in outs], dim=1))
+
+
+def seq_rows(fin, ll, res, grads):
+    """The rows :func:`adjoint_rows` compares, with whatever is None left out."""
+    out = [ll[fin][:, None]]
+    if res is not None:
+        out += [x[fin] for x in res]
+    if grads is not None:
+        out += [x[None] if x.dim() == 1 else x[fin] for x in grads]
+    return out
+
+
+def carry_cost(kind, B, J, K, live, item=4):
+    """(bytes, operations) of one carry entry on a block of K steps: the
+    entry without a carry (:func:`k1_cost`, :func:`adjoint_cost`) plus
+    its carries in and out and its partials."""
+    C, A = 3 * J * J + 4 * J + 2, 3 * J * J + 2 * J
+    if kind == "fwd":
+        nbytes, ops = k1_cost(B, J, K, item)
+        return nbytes + item * (2 * B * C + 3 * B), ops
+    k3, k4 = adjoint_cost(B, J, K, 8, item, live)
+    if kind == "fwd_aug":
+        return k3[0] + item * (2 * B * C + 3 * B), k3[1]
+    return k4[0] + item * 2 * B * A, k4[1]
+
+
+def phase_seq_carry(dev, seed):
+    """Phase 23a: each carry entry chained over SEQ_BLOCKS blocks through
+    the ring's one-block helper, held against one launch of the entry
+    without a carry at N = 2^14 (float64 1e-9; float32: the same step
+    arithmetic, so only the order of the partial sums differs) and against
+    the chained plain loops at N = 2^10 (phase 2's and phase 6's gates);
+    then each carry entry's time against the entry without a carry on one
+    block. Returns {kernel: (max abs f32 err, ms, plain ms, cost)}."""
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+
+    rows, times = {}, []
+    for J, B in SEQ_SHAPES:
+        wide = "wide_" if J > 32 else ""
+        names = [f"celerite_{wide}{k}_carry" for k in ("fwd", "fwd_aug", "bwd")]
+        worst = {n: 0.0 for n in names}
+        errs_line = []
+        # one launch against the chained carry entries, N = 2^14; float32
+        # as phase 6 gates it, each output within 3x the float32 one
+        # launch's own error against the float64 one launch
+        ref64 = None
+        for dtype in (torch.float64, torch.float32):
+            args, dt64 = seq_inputs(J, B, SEQ_N, seed, dev, dtype)
+            g = torch.linspace(0.5, 1.5, B, dtype=dtype, device=dev)
+            k1 = cc._launch(*args, dt64)
+            ll3, res3 = vjp.fwd_aug(*args, dt=dt64)
+            fin = torch.isfinite(ll3)
+            g = torch.where(fin, g, torch.zeros_like(g))
+            grads = vjp.bwd(*args, res3, g, dt=dt64)
+            c1, _, _ = seq_chain(args, dt64, SEQ_BLOCKS, False)
+            c3, cres, cgrads = seq_chain(args, dt64, SEQ_BLOCKS, True, g)
+            torch.cuda.synchronize()
+            check(torch.equal(torch.isneginf(c1), torch.isneginf(k1))
+                  and torch.equal(torch.isneginf(c3), ~fin) and bool(~fin[0]),
+                  f"phase 23a J={J} {dtype}: the -inf lanes differ")
+            check(bool(fin.sum() >= B - 1), f"phase 23a J={J}: {int((~fin).sum())} -inf lanes")
+            e1 = rel_rows(c1[fin][:, None], k1[fin][:, None])
+            chained, one = seq_rows(fin, c3, cres, cgrads), seq_rows(fin, ll3, res3, grads)
+            e34 = [rel_rows(x, r) for x, r in zip(chained, one)]
+            d1 = float((c1[fin].double() - k1[fin].double()).abs().max())
+            d3 = float((c3[fin].double() - ll3[fin].double()).abs().max())
+            tag = "f64" if dtype == torch.float64 else "f32"
+            errs_line.append(f"{tag} K1 rel={e1:.2e} abs={d1:.2e} K3 value abs={d3:.2e} "
+                             f"K3/K4 rows max rel={max(e34):.2e} "
+                             f"({ADJ_NAMES[int(np.argmax(e34))]})")
+            if dtype == torch.float64:
+                check(max(e1, *e34) <= 1e-9, f"phase 23a J={J} f64: chained carry entries off "
+                      f"one launch by {max(e1, *e34):.3e} > 1e-9")
+                ref64 = [x.double() for x in one]
+            else:
+                check(max(d1, d3) <= 0.05, f"phase 23a J={J} f32: chained value off one launch "
+                      f"by {max(d1, d3):.3e} nats > 0.05")
+                ratio = 0.0
+                for i, (x, q, r) in enumerate(zip(chained, one, ref64)):
+                    e_k, e_q = rel_rows(x, r), rel_rows(q, r)
+                    ratio = max(ratio, e_k / max(e_q, 1e-7))
+                    check(e_k <= max(3.0 * e_q, 1e-5), f"phase 23a J={J} f32 {ADJ_NAMES[i]}: "
+                          f"chained rel err {e_k:.3e} > 3 x one launch's {e_q:.3e}")
+                errs_line.append(f"f32 chained/one-launch error ratio={ratio:.3f}")
+            del res3, cres
+        # against the chained plain loops, N = 2^10, and the line's times
+        a64, dt64 = seq_inputs(J, B, SEQ_SHORT_N, seed + 1, dev, torch.float64)
+        a32 = [x.float() for x in a64]
+        g = torch.linspace(0.5, 1.5, B, dtype=torch.float64, device=dev)
+        p1, _, _ = seq_chain(a64, dt64, SEQ_BLOCKS, False, plain=True)
+        p3, pres, pgrads = seq_chain(a64, dt64, SEQ_BLOCKS, True, g, plain=True)
+        fin = torch.isfinite(p3)
+        g = torch.where(fin, g, torch.zeros_like(g))
+        refs = seq_rows(fin, p3, pres, pgrads)
+        q1, _, _ = seq_chain(a32, dt64, SEQ_BLOCKS, False, plain=True)
+        q3, qres, qgrads = seq_chain(a32, dt64, SEQ_BLOCKS, True, g.float(), plain=True)
+        own = seq_rows(fin, q3, qres, qgrads)
+        for args, gg in ((a64, g), (a32, g.float())):
+            k1, _, _ = seq_chain(args, dt64, SEQ_BLOCKS, False)
+            k3, kres, kgrads = seq_chain(args, dt64, SEQ_BLOCKS, True, gg)
+            torch.cuda.synchronize()
+            check(torch.equal(torch.isneginf(k1), torch.isneginf(p1))
+                  and torch.equal(torch.isneginf(k3), ~fin),
+                  f"phase 23a J={J}: -inf lanes differ from the chained plain loops")
+            got = seq_rows(fin, k3, kres, kgrads)
+            if args[0].dtype == torch.float64:
+                e = [rel_rows(k1[fin][:, None], p1[fin][:, None])]
+                e += [rel_rows(x, r) for x, r in zip(got, refs)]
+                check(max(e) <= 1e-9, f"phase 23a J={J} f64: carry entries off the chained "
+                      f"plain loops by {max(e):.3e} > 1e-9")
+                errs_line.append(f"vs plain f64 max rel={max(e):.2e}")
+                continue
+            d1 = float((k1[fin].double() - q1[fin].double()).abs().max())
+            check(d1 <= 0.05, f"phase 23a J={J} f32: K1 carry off the plain loop by {d1:.3e} "
+                  "nats > 0.05")
+            worst[names[0]] = d1
+            ratio = 0.0
+            for i, (x, q, r) in enumerate(zip(got, own, refs)):
+                e_k, e_q = rel_rows(x, r), rel_rows(q, r)
+                ratio = max(ratio, e_k / max(e_q, 1e-7))
+                check(e_k <= max(3.0 * e_q, 1e-5), f"phase 23a J={J} f32 {ADJ_NAMES[i]}: "
+                      f"kernel rel err {e_k:.3e} > 3 x the plain loop's {e_q:.3e}")
+                key = names[1] if i < 8 else names[2]
+                worst[key] = max(worst[key], float((x.double() - q.double()).abs().max()))
+            errs_line.append(f"vs plain f32 K1 abs={d1:.2e} K3/K4 worst kernel/plain "
+                             f"ratio={ratio:.3f}")
+        # times: one block of the short series (the line), and of the long one
+        # against the same entry without a carry
+        K = SEQ_SHORT_N // SEQ_BLOCKS
+        a, b, c, d, t, y, s2 = a32
+        dtg = torch.cat([dt64.new_zeros(1), dt64]).float()
+        _, carry, _ = vjp.fwd_aug_carry(a, b, c, d, t[:K], y[:, :K], s2[:, :K], dtg[:K],
+                                        vjp.neutral_carry(B, J, a))
+        sl = slice(K, 2 * K)
+        blk = (a, b, c, d, t[sl], y[:, sl], s2[:, sl], dtg[sl], carry)
+        _, cout, res = vjp.fwd_aug_carry(*blk)
+        ain = torch.zeros(B, vjp.adjoint_width(J), device=dev)
+        gg = torch.isfinite(q3).float()
+        live = int(gg.sum())
+        fns = {names[0]: (lambda: cc.loglike_carry(*blk),  # noqa: B023
+                          lambda: cc._plain(*blk[:8], None, carry=carry)),  # noqa: B023
+               names[1]: (lambda: vjp.fwd_aug_carry(*blk),  # noqa: B023
+                          lambda: vjp.fwd_aug_plain(*blk[:8], carry=carry)),  # noqa: B023
+               names[2]: (lambda: vjp.bwd_carry(*blk[:7], res, gg, blk[7], ain),  # noqa: B023
+                          lambda: vjp.bwd_plain(*blk[:7], res, gg, blk[7],  # noqa: B023
+                                                carry=ain))}
+        for name, kind in zip(names, ("fwd", "fwd_aug", "bwd")):
+            ms = cuda_ms(fns[name][0], 20)
+            pms = cuda_ms(fns[name][1], 1)
+            rows[name] = (worst[name], ms, pms, carry_cost(kind, B, J, K, live))
+        args, dt64 = seq_inputs(J, B, SEQ_N, seed, dev, torch.float32)
+        K = SEQ_N // SEQ_BLOCKS
+        a, b, c, d, t, y, s2 = args
+        dtg = torch.cat([dt64.new_zeros(1), dt64]).float()
+        sl = slice(K, 2 * K)
+        _, carry, _ = vjp.fwd_aug_carry(a, b, c, d, t[:K], y[:, :K], s2[:, :K], dtg[:K],
+                                        vjp.neutral_carry(B, J, a))
+        blk = (a, b, c, d, t[sl], y[:, sl], s2[:, sl])
+        _, cout, res = vjp.fwd_aug_carry(*blk, dtg[sl], carry)
+        _, res0 = vjp.fwd_aug(*blk, dt=dt64[K:2 * K - 1])
+        gg = torch.ones(B, device=dev)
+        gg[0] = 0.0
+        ain = torch.zeros(B, vjp.adjoint_width(J), device=dev)
+        pairs = ((names[0], lambda: cc.loglike_carry(*blk, dtg[sl], carry),  # noqa: B023
+                  lambda: cc._launch(*blk, dt64[K:2 * K - 1])),  # noqa: B023
+                 (names[1], lambda: vjp.fwd_aug_carry(*blk, dtg[sl], carry),  # noqa: B023
+                  lambda: vjp.fwd_aug(*blk, dt=dt64[K:2 * K - 1])),  # noqa: B023
+                 (names[2], lambda: vjp.bwd_carry(*blk, res, gg, dtg[sl], ain),  # noqa: B023
+                  lambda: vjp.bwd(*blk, res0, gg, dt=dt64[K:2 * K - 1])))  # noqa: B023
+        for name, with_carry, without in pairs:  # in turns: carry, none, none, carry
+            m1, m0 = cuda_ms(with_carry, 10), cuda_ms(without, 10)
+            m0, m1 = (m0 + cuda_ms(without, 10)) / 2, (m1 + cuda_ms(with_carry, 10)) / 2
+            times.append(f"{name} J={J} B={B} K={K}: carry_ms={m1:.4f} no_carry_ms={m0:.4f} "
+                         f"ratio={m1 / m0:.3f}")
+        del res, res0
+        print(f"phase 23a carry entries J={J} B={B}: ok N={SEQ_N} in {SEQ_BLOCKS} blocks vs one "
+              f"launch, N={SEQ_SHORT_N} vs the chained plain loops, lane 0 non-PD: "
+              + "; ".join(errs_line))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    for ln in times:
+        print(f"phase 23c times f32 (one block, CUDA events; {smi}): {ln}")
+    for name, (err, ms, pms, cost) in rows.items():
+        bms, by = bound(*cost)
+        print(f"phase 23c {name} f32 block of {SEQ_SHORT_N // SEQ_BLOCKS} steps: ms={ms:.4f} "
+              f"plain_ms={pms:.2f} bound_ms={bms:.5f} ({by}) max_abs_err_f32={err:.3e}")
+    return rows
+
+
+def seq_light_curve(seed, N):
+    """A simulated light curve of N points from a numpy generator seeded
+    with ``seed``: exponential gaps, an AR(1) log-flux, 2 % errors."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(0.5 + rng.exponential(0.5, N))
+    t -= t[0]
+    e = 0.05 * rng.normal(size=N)
+    x = np.empty(N)
+    x[0] = 0.0
+    for i in range(1, N):
+        x[i] = 0.995 * x[i - 1] + e[i]
+    y = np.exp(0.3 * x)
+    return t, y, 0.02 * y
+
+
+def phase_seq_builder(dev, seed):
+    """Phase 23b: ``single_bending_model(seq_mesh=)`` on a one-rank NCCL
+    group (as phase 21 builds its group), SHO (J = 20, B = 64) and
+    DRWCelerite (J = 40, B = 16), on a simulated light curve of N = 2^15:
+    ``loglike_batch``, the scalar ``loglike`` (``logl(mesh=)``) and the
+    ``logpost_batch`` gradient against the spec without ``seq_mesh``,
+    float64 within 1e-12 relative. The plain loops and the scan are made
+    to raise while the seq specs run. Returns the carry entries' launches
+    on this path and the walls of both paths."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pioran_tpu_torch import parallel as par, single_bending_model
+    from pioran_tpu_torch.ops import celerite as ocel, cuda_celerite as cc
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+    from pioran_tpu_torch.samplers.chees import batch_value_and_grad
+
+    t, y, yerr = seq_light_curve(seed, SEQ_BUILDER_N)
+    xbar, va = float(np.mean(np.log(y))), float(np.var(np.log(y)))
+    par.initialize_distributed(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                               rank=0, timeout=timedelta(seconds=120))
+    launches, walls = {}, {}
+    try:
+        mesh = par.make_mesh("seq", device_type="cuda")
+
+        def refuse(*a, **k):
+            raise PhaseError("a plain loop or the scan ran on the seq path")
+
+        for basis, J, B in SEQ_BUILDER:
+            kw = dict(basis_function=basis, device=dev, dtype=torch.float64)
+            seq = single_bending_model(t, y, yerr, xbar, va, seq_mesh=mesh, **kw)
+            ref = single_bending_model(t, y, yerr, xbar, va, **kw)
+            gen = torch.Generator(device=dev).manual_seed(seed + J)
+            TH = seq.prior.sample((B,), generator=gen, dtype=torch.float64, device=dev)
+            Z = seq.prior.to_unconstrained(TH)
+
+            def evaluate(spec):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ll = spec.loglike_batch(TH)
+                one = spec.loglike(TH[1])
+                lp, gz = batch_value_and_grad(spec.logpost_batch, Z)
+                torch.cuda.synchronize()
+                return (ll, one, lp, gz), time.perf_counter() - t0
+
+            (ll_r, one_r, lp_r, gz_r), _ = evaluate(ref)  # also sets up the allocator's pool
+            saved = (cc._plain, vjp.fwd_aug_plain, vjp.bwd_plain, ocel.celerite_factor_solve)
+            cc._plain = vjp.fwd_aug_plain = vjp.bwd_plain = refuse
+            ocel.celerite_factor_solve = refuse
+            zero_carry_counts()
+            try:
+                (ll, one, lp, gz), w_seq = evaluate(seq)
+            finally:
+                cc._plain, vjp.fwd_aug_plain, vjp.bwd_plain, ocel.celerite_factor_solve = saved
+            counts = carry_counts()
+            # walls once both are warm: the first seq call also sets up the
+            # process group's communicator
+            w_first, w_seq, w_ref = w_seq, evaluate(seq)[1], evaluate(ref)[1]
+            wide = "wide_" if J > 32 else ""
+            mine = {k: v for k, v in counts.items() if k.startswith(f"celerite_{wide}")
+                    and (wide or "wide" not in k)}
+            check(counts["others"] == 0 and all(v >= 1 for v in mine.values())
+                  and mine[f"celerite_{wide}fwd_carry"] == 2
+                  and sum(counts[k] for k in CARRY_COUNTERS if k not in mine) == 0,
+                  f"phase 23b {basis}: launches {counts}")
+            launches.update(mine)
+            fin = torch.isfinite(ll_r)
+            check(torch.equal(torch.isfinite(ll), fin) and torch.equal(torch.isfinite(lp), torch.isfinite(lp_r))
+                  and bool(fin.sum() >= B // 2), f"phase 23b {basis}: finite rows differ "
+                  f"({int(fin.sum())} of {B} finite)")
+            e_ll = float(((ll - ll_r).abs() / ll_r.abs())[fin].max())
+            e_one = abs(float(one) / float(one_r) - 1.0)
+            fl = torch.isfinite(lp_r)
+            e_g = rel_rows(gz[fl], gz_r[fl])
+            e_lp = float(((lp - lp_r).abs() / lp_r.abs())[fl].max())
+            walls[basis] = (w_seq, w_ref)
+            print(f"phase 23b {basis} J={J} B={B} N={SEQ_BUILDER_N} seq_mesh (one NCCL rank) vs "
+                  f"unsharded f64: loglike_batch rel={e_ll:.2e} loglike rel={e_one:.2e} "
+                  f"logpost rel={e_lp:.2e} gradient rows rel={e_g:.2e} (gates 1e-12); "
+                  f"{int(fin.sum())} finite rows; wall_s seq={w_seq:.3f} unsharded={w_ref:.3f} "
+                  f"(first seq call {w_first:.3f}); "
+                  f"launches {mine}")
+            check(max(e_ll, e_one, e_lp, e_g) <= 1e-12,
+                  f"phase 23b {basis}: seq path off the unsharded spec by "
+                  f"{max(e_ll, e_one, e_lp, e_g):.3e} > 1e-12")
+    finally:
+        dist.destroy_process_group()
+    print("phase 23b seq_mesh builder (world size 1, NCCL): ok")
+    return launches, walls
+
+
+def phase_seq(dev, seed):
+    """Phase 23: the time-sharded scan (23a, 23c: the carry entries; 23b:
+    the builder on a one-rank NCCL mesh). Returns (rows of 23a, launches
+    of 23b)."""
+    rows = phase_seq_carry(dev, seed)
+    launches, _ = phase_seq_builder(dev, seed)
+    return rows, launches
+
+
 def card_shared() -> bool:
     """Whether a second process may use the card: its compute mode is
     Default (not exclusive to one process, not prohibited)."""
@@ -2594,6 +3043,8 @@ def main(argv=None) -> int:
                          "ultranest-layout output")
     ap.add_argument("--serial", action="store_true",
                     help="run phase 9 in this process, so that every phase runs alone")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 23's series and light curve (numpy)")
     ap.add_argument("--only-chees", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2635,6 +3086,7 @@ def main(argv=None) -> int:
     mesh_launches = timed("21", phase_multi_device, dev, args.out)
     wide_times = timed("22a", phase_wide_times, dev, datasets)
     wide_smc_launches = timed("22b", phase_wide_smc, dev, args.out)
+    seq_rows_, seq_launches = timed("23", phase_seq, dev, args.seed)
     child = None if args.serial or not card_shared() else start_chees(args.out)
     try:
         if child is None:
@@ -2661,7 +3113,8 @@ def main(argv=None) -> int:
           f"batched_loglike_tables {{'celerite_tables': {k0_launches}}}, SMC {smc_launches}, "
           f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}, "
           f"post-fit {post_launches}, resume {resume_launches}, multi-device {mesh_launches}, "
-          f"DRWCelerite SMC (J=40) {wide_smc_launches}, J > 32 paths {wide_path_launches}")
+          f"DRWCelerite SMC (J=40) {wide_smc_launches}, J > 32 paths {wide_path_launches}, "
+          f"seq_mesh builder (23b) {seq_launches}")
 
     # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
     # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS,
@@ -2697,6 +3150,10 @@ def main(argv=None) -> int:
     wide_launches = {**wide_smc_launches, **wide_path_launches}
     for name, (ms, plain_ms, cost) in wide_times.items():
         rows[name] = (wide_launches[name], wide_err[name], ms, plain_ms, cost)
+    # the carry entries on one block of phase 23a's short series; launches
+    # on phase 23b's seq_mesh builder path
+    for name, (err, ms, plain_ms, cost) in seq_rows_.items():
+        rows[name] = (seq_launches[name], err, ms, plain_ms, cost)
     kernels = []
     for name, (launches, err, ms, plain_ms, cost) in rows.items():
         src, replaces = KERNELS[name]

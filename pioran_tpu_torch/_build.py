@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,12 +55,17 @@ def find_nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, compiled on first
     use. Raises ``RuntimeError`` with nvcc's output if the build or the
-    load fails."""
+    load fails. The library's hash covers the source and the sources of
+    ``csrc/`` it includes."""
     if name in _LOADED:
         return _LOADED[name][0]
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        text = fh.read()
+    for inc in re.findall(rb'^#include "([^"]+)"', text, flags=re.M):
+        with open(os.path.join(CSRC_DIR, inc.decode()), "rb") as fh:
+            text += fh.read()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     seconds, log = 0.0, ""

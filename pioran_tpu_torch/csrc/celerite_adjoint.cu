@@ -94,12 +94,36 @@
 // __dsub_rn), no --use_fast_math, and CUDA's expf/exp for exp(-c dt) in
 // place of the TPU's exp_neg.
 //
+// Carry entries (compile-time flag Carry; shared grid only): one block of
+// a series split along time, as the TPU kernels do with the carry refs of
+// their segmented launches (K3 `sin_ref, fwin_ref, accin_ref` in and
+// `sout_ref, fwout_ref, accout_ref` out; K4 `mbin_ref, cpin_ref` in and
+// `mbout_ref, cpout_ref` out) and as the time-sharded scan
+// (pioran_tpu_torch/parallel/seq_scan.py) hands state between ranks.
+// dt is then the (N,) spacing of every step, dt[0] the one to the previous
+// block's last point (0 for the first block), so the first step is not
+// inert. K3 starts from `cin` (B, 3 J^2 + 4 J + 2: S00, S01, S11
+// row-major, W and f [cos-type; sin-type], D, zp; zeros start a series),
+// so its first checkpoint is T = S_in + D_in W_in W_in^T; it writes the
+// state after its last step to `cout` and the block's partials (Kahan sums
+// of log|D| and zp^2 / D, min D) to `parts` (B, 3). K4 starts its reverse
+// sweep from `ain` (B, 3 J^2 + 2 J: P00 = M00 + M00^T, M01, P11 = M11 +
+// M11^T row-major, then cpre), the cotangents of T and pre at the next
+// block's first step (zeros for the last block), and writes those at its
+// own first step to `aout`; its abar .. dbar are the block's partials, c̄
+// with the first step's boundary decay.
+//
 // C interface (bound with ctypes): celerite_fwd_aug_{f32,f64},
 // celerite_bwd_{f32,f64} and their per-lane forms
 // celerite_fwd_aug_multi_{f32,f64} and celerite_bwd_multi_{f32,f64} (one
-// more argument, the int32 n_valid) launch on the given stream, never
-// synchronise, and return cudaGetLastError() as an int. The K4 entries
-// take the sub-chunk length ks and the chains per block after kc.
+// more argument, the int32 n_valid), and the carry entries
+// celerite_fwd_aug_carry_{f32,f64} (cin, cout, parts after Tcp) and
+// celerite_bwd_carry_{f32,f64} (ain, aout after dtb) launch on the given
+// stream, never synchronise, and return cudaGetLastError() as an int. The
+// K4 entries take the sub-chunk length ks and the chains per block after kc.
+// The carry entries are built from this file into a library of their own,
+// celerite_adjoint_carry.cu, which defines PIORAN_CARRY_ENTRIES: nvcc
+// then compiles their 24 instantiations beside this library's 48, at once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -161,9 +185,10 @@ __device__ __forceinline__ void warp_sum2(T& u, T& v) {
 }
 
 // spacing of step n: 0 for the inert first step, else dt[n-1] (host f64
-// spacings cast to T) or t[n] - t[n-1]
-template <typename T>
+// spacings cast to T) or t[n] - t[n-1]; with a carry, dt[n]
+template <bool Carry, typename T>
 __device__ __forceinline__ T step_dt(const T* t, const T* dt, int n) {
+  if (Carry) return dt[n];
   if (n == 0) return T(0);
   return dt ? dt[n - 1] : t[n] - t[n - 1];
 }
@@ -258,7 +283,8 @@ __host__ __device__ constexpr int bwd_warp_len(int J, int ks, int V) {
 
 // JP: compile-time row capacity (>= J, <= 32); columns j >= J are zero.
 // PerLaneT: per-chain t (B, N), dt (B, N - 1) and n_valid (B,).
-template <typename T, int JP, bool PerLaneT>
+// Carry: a block of a split series (header).
+template <typename T, int JP, bool PerLaneT, bool Carry>
 __global__ void __launch_bounds__(32 * kFwdWarps)
 fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
                const T* __restrict__ c, const T* __restrict__ d,
@@ -268,6 +294,7 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
                T* __restrict__ out, T* __restrict__ W0t, T* __restrict__ W1t,
                T* __restrict__ P0t, T* __restrict__ P1t, T* __restrict__ Dt,
                T* __restrict__ ZPt, T* __restrict__ Tcp,
+               const T* __restrict__ cin, T* __restrict__ cout, T* __restrict__ parts,
                int B, int J, int N, int kc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int V = Vec<T>::n;
@@ -306,6 +333,24 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const long long cN = static_cast<long long>(chain) * N;
   const int JJ = J * J;
   const int nck = (N + kc - 1) / kc;
+  const int C = 3 * JJ + 4 * J + 2;  // carry values a chain
+  if constexpr (Carry) {  // the previous block's state, row `lane`
+    const T* ci_ = cin + static_cast<long long>(chain) * C;
+#pragma unroll
+    for (int j = 0; j < JP; ++j) {
+      const bool in = row && j < J;
+      S00[j] = in ? ci_[lane * J + j] : T(0);
+      S01[j] = in ? ci_[JJ + lane * J + j] : T(0);
+      S10[j] = in ? ci_[JJ + j * J + lane] : T(0);  // S10 = S01^T
+      S11[j] = in ? ci_[2 * JJ + lane * J + j] : T(0);
+    }
+    W0 = row ? ci_[3 * JJ + lane] : T(0);
+    W1 = row ? ci_[3 * JJ + J + lane] : T(0);
+    f0 = row ? ci_[3 * JJ + 2 * J + lane] : T(0);
+    f1 = row ? ci_[3 * JJ + 3 * J + lane] : T(0);
+    Dp = ci_[3 * JJ + 4 * J];
+    zpp = ci_[3 * JJ + 4 * J + 1];
+  }
 
   for (int base = 0; base < N; base += 32) {
     const int nk = min(32, N - base);
@@ -315,7 +360,7 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
       y_k = y[cN + n];
       s_k = s2[cN + n];
       t_k = t[n];
-      dt_k = step_dt(t, dt, n);
+      dt_k = step_dt<Carry>(t, dt, n);
     }
     T D_k = T(0), zp_k = T(0);  // D and zp of step base + lane, stored after the block
     for (int k = 0; k < nk; ++k) {
@@ -442,6 +487,31 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
     __syncwarp();  // the stage is read out before the next steps refill it
   }
 
+  if constexpr (Carry) {  // the state after the last step, and the partials
+    T* co_ = cout + static_cast<long long>(chain) * C;
+    if (row) {
+#pragma unroll
+      for (int j = 0; j < JP; ++j) {
+        if (j < J) {
+          co_[lane * J + j] = S00[j];
+          co_[JJ + lane * J + j] = S01[j];
+          co_[2 * JJ + lane * J + j] = S11[j];
+        }
+      }
+      co_[3 * JJ + lane] = W0;
+      co_[3 * JJ + J + lane] = W1;
+      co_[3 * JJ + 2 * J + lane] = f0;
+      co_[3 * JJ + 3 * J + lane] = f1;
+    }
+    if (lane == 0) {
+      co_[3 * JJ + 4 * J] = Dp;
+      co_[3 * JJ + 4 * J + 1] = zpp;
+      parts[3LL * chain] = logdet;
+      parts[3LL * chain + 1] = quad;
+      parts[3LL * chain + 2] = minD;
+    }
+    return;
+  }
   if (lane == 0) {
     const T ll = T(-0.5) * (logdet + quad + static_cast<T>(nv) * T(kLog2Pi));
     const bool ok = (minD > T(0)) && isfinite(ll);
@@ -455,7 +525,8 @@ fwd_aug_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 // JP: J rounded up to a multiple of 4, so every column loop runs whole
 // 16-byte vectors with no test of J (columns J .. JP - 1 hold zeros).
-template <typename T, int JP, bool PerLaneT>
+// Carry: a block of a split series (header).
+template <typename T, int JP, bool PerLaneT, bool Carry>
 __global__ void __launch_bounds__(32 * kBwdChains)
 bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
            const T* __restrict__ c, const T* __restrict__ d,
@@ -468,6 +539,7 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
            T* __restrict__ abar, T* __restrict__ bbar, T* __restrict__ cbar,
            T* __restrict__ dbar, T* __restrict__ ybar, T* __restrict__ s2bar,
            T* __restrict__ tb, T* __restrict__ dtb,
+           const T* __restrict__ ain, T* __restrict__ aout,
            int B, int J, int N, int kc, int ks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int V = Vec<T>::n;
@@ -485,10 +557,14 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const long long cj = static_cast<long long>(chain) * J + lane;
   const long long cN = static_cast<long long>(chain) * N;
   const T gl = g[chain];
+  const int CA = 3 * J * J + 2 * J;  // adjoint carry values a chain
   if (gl == T(0)) {  // no seed (a -inf chain): exact zeros, whatever the tables hold
     if (row) abar[cj] = bbar[cj] = cbar[cj] = dbar[cj] = T(0);
     for (int n = lane; n < N; n += 32) {
       ybar[cN + n] = s2bar[cN + n] = tb[cN + n] = dtb[cN + n] = T(0);
+    }
+    if constexpr (Carry) {
+      for (int e = lane; e < CA; e += 32) aout[static_cast<long long>(chain) * CA + e] = T(0);
     }
     return;
   }
@@ -522,6 +598,20 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   for (int j = 0; j < JP; ++j) P00[j] = M01[j] = M10[j] = P11[j] = T(0);
   T cp0 = T(0), cp1 = T(0);  // deferred cotangent of pre_{m+1}
   T ab = T(0), bb = T(0), cb = T(0), db = T(0), sumabar = T(0);
+  if constexpr (Carry) {  // the next block's cotangents of T and pre, row `lane`
+    const T* ai_ = ain + static_cast<long long>(chain) * CA;
+    const int jj = J * J;
+#pragma unroll
+    for (int j = 0; j < JP; ++j) {
+      const bool in = row && j < J;
+      P00[j] = in ? ai_[lane * J + j] : T(0);
+      M01[j] = in ? ai_[jj + lane * J + j] : T(0);
+      M10[j] = in ? ai_[jj + j * J + lane] : T(0);  // M10 = M01^T
+      P11[j] = in ? ai_[2 * jj + lane * J + j] : T(0);
+    }
+    cp0 = row ? ai_[3 * jj + lane] : T(0);
+    cp1 = row ? ai_[3 * jj + J + lane] : T(0);
+  }
 
   const long long JJ = static_cast<long long>(J) * J;
   const int nck = (N + kc - 1) / kc;
@@ -547,9 +637,10 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     if (lane < ns) {
       cp_async(sc_rows + lane, Dt + cN + s0 + lane);
       cp_async(sc_rows + ks + lane, ZPt + cN + s0 + lane);
-      if (dt) {
-        if (s0 + lane >= 1)
-          cp_async(sc_rows + 2 * ks + lane, dt + s0 + lane - 1);
+      if (dt) {  // step m's spacing is dt[m - 1], or with a carry dt[m]
+        constexpr int d0 = Carry ? 0 : 1;
+        if (s0 + lane >= d0)
+          cp_async(sc_rows + 2 * ks + lane, dt + s0 + lane - d0);
         else
           sc_rows[2 * ks + lane] = T(0);
       }
@@ -600,7 +691,7 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     const T* TTr = Dr + 3 * ks;  // TTr[k + 1] = t[s0 + k]
     const T* ckb = ckb0 + (ch & 1) * 3 * J * RS;
     auto seg_dt = [&](int k) -> T {
-      if (s0 + k == 0) return T(0);
+      if (!Carry && s0 + k == 0) return T(0);
       return dt ? DTr[k] : TTr[k + 1] - TTr[k];
     };
 
@@ -657,7 +748,7 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
         } else {  // a step before the sub-chunk: from device memory
           __syncwarp();  // the last replayed step's reads are done
           const long long o = (cN + m) * J + lane;
-          ec = row ? Ops<T>::exp_(-(ci * step_dt(t, dt, m))) : T(0);
+          ec = row ? Ops<T>::exp_(-(ci * step_dt<Carry>(t, dt, m))) : T(0);
           W0 = row ? W0t[o] : T(0);
           W1 = row ? W1t[o] : T(0);
           Dm = Dt[cN + m];
@@ -887,14 +978,32 @@ bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     cbar[cj] = cb;
     dbar[cj] = db;
   }
+  if constexpr (Carry) {  // the cotangents of T and pre at the block's first step
+    if (row) {
+      T* ao = aout + static_cast<long long>(chain) * CA;
+      const int jj = J * J;
+#pragma unroll
+      for (int j = 0; j < JP; ++j) {
+        if (j < J) {
+          ao[lane * J + j] = P00[j];
+          ao[jj + lane * J + j] = M01[j];
+          ao[2 * jj + lane * J + j] = P11[j];
+        }
+      }
+      ao[3 * jj + lane] = cp0;
+      ao[3 * jj + J + lane] = cp1;
+    }
+  }
 }
 
-template <typename T, bool PerLaneT>
+template <typename T, bool PerLaneT, bool Carry = false>
 int launch_fwd_aug(const T* a, const T* b, const T* c, const T* d, const T* t,
                    const T* dt, const T* y, const T* s2, const int* n_valid,
                    T* out, T* W0t, T* W1t, T* P0t, T* P1t, T* Dt, T* ZPt, T* Tcp,
-                   int B, int J, int N, int kc, cudaStream_t stream) {
-  if (J < 1 || J > 32 || kc < 1 || (PerLaneT && n_valid == nullptr))
+                   int B, int J, int N, int kc, cudaStream_t stream,
+                   const T* cin = nullptr, T* cout = nullptr, T* parts = nullptr) {
+  if (J < 1 || J > 32 || kc < 1 || (PerLaneT && n_valid == nullptr) ||
+      (Carry && (dt == nullptr || cin == nullptr || cout == nullptr || parts == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   const int warp_bytes = fwd_warp_len(J) * static_cast<int>(sizeof(T));
@@ -904,13 +1013,13 @@ int launch_fwd_aug(const T* a, const T* b, const T* c, const T* d, const T* t,
   const dim3 grid((B + warps - 1) / warps);
 #define PIORAN_FWD_AUG(JP)                                                       \
   do {                                                                           \
-    auto kern = fwd_aug_kernel<T, JP, PerLaneT>;                                 \
+    auto kern = fwd_aug_kernel<T, JP, PerLaneT, Carry>;                          \
     const cudaError_t e = cudaFuncSetAttribute(                                  \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);          \
     if (e != cudaSuccess) return static_cast<int>(e);                            \
     kern<<<grid, block, smem, stream>>>(a, b, c, d, t, dt, y, s2, n_valid, out,  \
-                                        W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, B, J,  \
-                                        N, kc);                                  \
+                                        W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, cin,   \
+                                        cout, parts, B, J, N, kc);               \
   } while (0)
   if (J <= 8) {
     PIORAN_FWD_AUG(8);
@@ -928,15 +1037,17 @@ int launch_fwd_aug(const T* a, const T* b, const T* c, const T* d, const T* t,
 // ks: sub-chunk length (1 <= ks <= min(kc, 32)); cpb: chains (warps) per
 // block (1 .. kBwdChains). The wrapper chooses both so the block's shared
 // memory fits; a choice that does not is refused.
-template <typename T, bool PerLaneT>
+template <typename T, bool PerLaneT, bool Carry = false>
 int launch_bwd(const T* a, const T* b, const T* c, const T* d, const T* t,
                const T* dt, const T* g, const int* n_valid, const T* W0t,
                const T* W1t, const T* P0t, const T* P1t, const T* Dt,
                const T* ZPt, const T* Tcp, T* abar, T* bbar, T* cbar, T* dbar,
                T* ybar, T* s2bar, T* tb, T* dtb, int B, int J, int N, int kc,
-               int ks, int cpb, cudaStream_t stream) {
+               int ks, int cpb, cudaStream_t stream, const T* ain = nullptr,
+               T* aout = nullptr) {
   if (J < 1 || J > 32 || kc < 1 || ks < 1 || ks > kc || ks > 32 || cpb < 1 ||
-      cpb > kBwdChains || (PerLaneT && n_valid == nullptr))
+      cpb > kBwdChains || (PerLaneT && n_valid == nullptr) ||
+      (Carry && (dt == nullptr || ain == nullptr || aout == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   const long long smem = static_cast<long long>(cpb) *
@@ -946,13 +1057,13 @@ int launch_bwd(const T* a, const T* b, const T* c, const T* d, const T* t,
   const dim3 grid((B + cpb - 1) / cpb);
 #define PIORAN_BWD(JP)                                                           \
   do {                                                                           \
-    auto kern = bwd_kernel<T, JP, PerLaneT>;                                     \
+    auto kern = bwd_kernel<T, JP, PerLaneT, Carry>;                              \
     const cudaError_t e = cudaFuncSetAttribute(                                  \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);          \
     if (e != cudaSuccess) return static_cast<int>(e);                            \
     kern<<<grid, block, static_cast<size_t>(smem), stream>>>(                    \
         a, b, c, d, t, dt, g, n_valid, W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, abar,   \
-        bbar, cbar, dbar, ybar, s2bar, tb, dtb, B, J, N, kc, ks);                \
+        bbar, cbar, dbar, ybar, s2bar, tb, dtb, ain, aout, B, J, N, kc, ks);     \
   } while (0)
   switch (jp4_of(J)) {
     case 4: PIORAN_BWD(4); break;
@@ -1002,10 +1113,32 @@ extern "C" {
     PIORAN_FWD_AUG_BODY(T, true, static_cast<const int*>(n_valid))               \
   }
 
+#define PIORAN_FWD_AUG_CARRY_ENTRY(NAME, T)                                      \
+  int NAME(const void* a, const void* b, const void* c, const void* d,          \
+           const void* t, const void* dt, const void* y, const void* s2,        \
+           void* W0t, void* W1t, void* P0t, void* P1t, void* Dt, void* ZPt,     \
+           void* Tcp, const void* cin, void* cout, void* parts, int B, int J,   \
+           int N, int kc, void* stream) {                                       \
+    return launch_fwd_aug<T, false, true>(                                       \
+        static_cast<const T*>(a), static_cast<const T*>(b),                      \
+        static_cast<const T*>(c), static_cast<const T*>(d),                      \
+        static_cast<const T*>(t), static_cast<const T*>(dt),                     \
+        static_cast<const T*>(y), static_cast<const T*>(s2), nullptr, nullptr,   \
+        static_cast<T*>(W0t), static_cast<T*>(W1t), static_cast<T*>(P0t),        \
+        static_cast<T*>(P1t), static_cast<T*>(Dt), static_cast<T*>(ZPt),         \
+        static_cast<T*>(Tcp), B, J, N, kc, static_cast<cudaStream_t>(stream),    \
+        static_cast<const T*>(cin), static_cast<T*>(cout), static_cast<T*>(parts)); \
+  }
+
+#ifndef PIORAN_CARRY_ENTRIES
 PIORAN_FWD_AUG_ENTRY(celerite_fwd_aug_f32, float)
 PIORAN_FWD_AUG_ENTRY(celerite_fwd_aug_f64, double)
 PIORAN_FWD_AUG_MULTI_ENTRY(celerite_fwd_aug_multi_f32, float)
 PIORAN_FWD_AUG_MULTI_ENTRY(celerite_fwd_aug_multi_f64, double)
+#else
+PIORAN_FWD_AUG_CARRY_ENTRY(celerite_fwd_aug_carry_f32, float)
+PIORAN_FWD_AUG_CARRY_ENTRY(celerite_fwd_aug_carry_f64, double)
+#endif
 
 #define PIORAN_BWD_BODY(T, PER_LANE, NV)                                         \
     return launch_bwd<T, PER_LANE>(                                              \
@@ -1043,10 +1176,38 @@ PIORAN_FWD_AUG_MULTI_ENTRY(celerite_fwd_aug_multi_f64, double)
     PIORAN_BWD_BODY(T, true, static_cast<const int*>(n_valid))                   \
   }
 
+#define PIORAN_BWD_CARRY_ENTRY(NAME, T)                                          \
+  int NAME(const void* a, const void* b, const void* c, const void* d,          \
+           const void* t, const void* dt, const void* g, const void* W0t,       \
+           const void* W1t, const void* P0t, const void* P1t, const void* Dt,   \
+           const void* ZPt, const void* Tcp, void* abar, void* bbar,            \
+           void* cbar, void* dbar, void* ybar, void* s2bar, void* tb,           \
+           void* dtb, const void* ain, void* aout, int B, int J, int N, int kc, \
+           int ks, int cpb, void* stream) {                                     \
+    return launch_bwd<T, false, true>(                                           \
+        static_cast<const T*>(a), static_cast<const T*>(b),                      \
+        static_cast<const T*>(c), static_cast<const T*>(d),                      \
+        static_cast<const T*>(t), static_cast<const T*>(dt),                     \
+        static_cast<const T*>(g), nullptr, static_cast<const T*>(W0t),           \
+        static_cast<const T*>(W1t), static_cast<const T*>(P0t),                  \
+        static_cast<const T*>(P1t), static_cast<const T*>(Dt),                   \
+        static_cast<const T*>(ZPt), static_cast<const T*>(Tcp),                  \
+        static_cast<T*>(abar), static_cast<T*>(bbar), static_cast<T*>(cbar),     \
+        static_cast<T*>(dbar), static_cast<T*>(ybar), static_cast<T*>(s2bar),    \
+        static_cast<T*>(tb), static_cast<T*>(dtb), B, J, N, kc, ks, cpb,         \
+        static_cast<cudaStream_t>(stream), static_cast<const T*>(ain),           \
+        static_cast<T*>(aout));                                                  \
+  }
+
+#ifndef PIORAN_CARRY_ENTRIES
 PIORAN_BWD_ENTRY(celerite_bwd_f32, float)
 PIORAN_BWD_ENTRY(celerite_bwd_f64, double)
 PIORAN_BWD_MULTI_ENTRY(celerite_bwd_multi_f32, float)
 PIORAN_BWD_MULTI_ENTRY(celerite_bwd_multi_f64, double)
+#else
+PIORAN_BWD_CARRY_ENTRY(celerite_bwd_carry_f32, float)
+PIORAN_BWD_CARRY_ENTRY(celerite_bwd_carry_f64, double)
+#endif
 
 const char* celerite_adjoint_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

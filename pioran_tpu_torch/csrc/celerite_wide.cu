@@ -66,10 +66,23 @@
 // without --use_fast_math, so sincos, exp, log and the divisions by D are
 // IEEE-accurate (CUDA's expf and exp in place of the TPU's exp_neg).
 //
+// Carry entries (compile-time flag Carry; shared grid only), as in the
+// narrow kernels' headers: K1 and K3 start a chain from the state `cin`
+// (B, 3 J^2 + 4 J + 2: S00, S01, S11 row-major, W and f [cos-type;
+// sin-type], D, zp; zeros start a series), take dt as the (N,) spacing of
+// every step with the boundary's first, and write the state after their
+// last step to `cout` and the block's partials (Kahan sums of log|D| and
+// zp^2 / D, min D) to `parts` (B, 3). K4 seeds G and cpre from `ain`
+// (B, 3 J^2 + 2 J: P00, M01, P11 row-major, cpre) and writes them at its
+// first step to `aout`, wherever the launch keeps G.
+//
 // C interface (bound with ctypes): celerite_wide_fwd_{f32,f64} (K1),
 // celerite_wide_fwd_multi_{f32,f64} (K2), celerite_wide_tables_{f32,f64}
 // (K0), celerite_wide_fwd_aug[_multi]_{f32,f64} (K3),
-// celerite_wide_bwd[_multi]_{f32,f64} (K4). The per-lane entries take the
+// celerite_wide_bwd[_multi]_{f32,f64} (K4), and the carry entries
+// celerite_wide_fwd_carry_{f32,f64} (K1), celerite_wide_fwd_aug_carry_{f32,
+// f64} (K3; cin, cout, parts after Tcp) and celerite_wide_bwd_carry_{f32,f64}
+// (K4; ain, aout after dtb). The per-lane entries take the
 // int32 n_valid after s2 (K2, K3) or g (K4). A null `state` (forward) or
 // `carry` / `chunk` (K4) puts that part in shared memory, else it is a
 // device scratch of the wrapper's: `state` (B, R, R), `carry` (B, R, R),
@@ -185,6 +198,8 @@ struct FwdArgs {
   T* out;                           // (B,)
   T *W0t, *W1t, *P0t, *P1t, *Dt, *ZPt, *Tcp;  // K3's residual tables
   T* state;                         // (B, R, R) scratch, or null: shared memory
+  const T* cin;                     // carry entries: the state in, out, the partials
+  T *cout, *parts;
   int B, J, N, kc;
 };
 
@@ -192,7 +207,8 @@ struct FwdArgs {
 // Aug: K3, the value plus the residual tables; every step runs and the
 // per-lane sums are masked past n_valid. Without it the per-lane loop ends
 // at n_valid, since nothing after a chain's last live step feeds its value.
-template <typename T, int G, bool Aug>
+// Carry: a block of a split series (header; G == kShared).
+template <typename T, int G, bool Aug, bool Carry>
 __global__ void __launch_bounds__(kMaxThreads)
 wide_fwd_kernel(const FwdArgs<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -232,15 +248,37 @@ wide_fwd_kernel(const FwdArgs<T> p) {
     block_sum<T, 1>(v, red);
     suma = v[0];
   }
-  for (long long e = r; e < static_cast<long long>(R) * R; e += blockDim.x) S[e] = T(0);
-  if (act) Wrow[r] = T(0);
+  const long long JJ = static_cast<long long>(J) * J;
+  const long long C = 3 * JJ + 4 * J + 2;  // carry values a chain
+  const T* cin = Carry ? p.cin + chain * C : nullptr;
+  // S by columns, (rr, cc) at cc R + rr; a carry holds S00, S01 and S11
+  // row-major (S10 = S01^T)
+  for (long long e = r; e < static_cast<long long>(R) * R; e += blockDim.x) {
+    T v = T(0);
+    if (Carry) {
+      const int rr = static_cast<int>(e % R), cc = static_cast<int>(e / R);
+      const int hr = rr >= J, hc = cc >= J;
+      const int ir = rr - hr * J, ic = cc - hc * J;
+      v = (hr && !hc) ? cin[JJ + static_cast<long long>(ic) * J + ir]
+                      : cin[(hr + hc) * JJ + static_cast<long long>(ir) * J + ic];
+    }
+    S[e] = v;
+  }
 
   T Wr = T(0), f = T(0);   // W_{n-1}, f_{n-1} of row r
   T Dp = T(0), zpp = T(0);  // D_{n-1}, zp_{n-1}
+  if (Carry) {
+    if (act) {
+      Wr = cin[3 * JJ + r];
+      f = cin[3 * JJ + R + r];
+    }
+    Dp = cin[3 * JJ + 2 * R];
+    zpp = cin[3 * JJ + 2 * R + 1];
+  }
+  if (act) Wrow[r] = Wr;
   T logdet = T(0), clog = T(0), quad = T(0), cquad = T(0);
   T minD = T(INFINITY);
   const long long cN = static_cast<long long>(chain) * N;
-  const long long JJ = static_cast<long long>(J) * J;
   const int nck = Aug ? (N + p.kc - 1) / p.kc : 0;
 
   for (int n = 0; n < nsteps; ++n) {
@@ -253,7 +291,7 @@ wide_fwd_kernel(const FwdArgs<T> p) {
         Er = p.phi[o];
       } else {
         const T tn = t[n];
-        const T dtn = n == 0 ? T(0) : (dt ? dt[n - 1] : tn - t[n - 1]);
+        const T dtn = Carry ? dt[n] : (n == 0 ? T(0) : (dt ? dt[n - 1] : tn - t[n - 1]));
         T si, co;
         Ops<T>::sincos_(di * tn, &si, &co);
         Ur = h ? ai * si - bi * co : ai * co + bi * si;
@@ -334,6 +372,25 @@ wide_fwd_kernel(const FwdArgs<T> p) {
     Dp = Dn;
     zpp = zpn;
   }
+  if (Carry) {  // the state after the last step (S row r is this thread's own), the partials
+    T* co = p.cout + chain * C;
+    if (act) {
+      for (int cc = h * J; cc < R; ++cc) {
+        const int hc = cc >= J;
+        co[(h + hc) * JJ + static_cast<long long>(i) * J + (cc - hc * J)] = S[cc * R + r];
+      }
+      co[3 * JJ + r] = Wr;
+      co[3 * JJ + R + r] = f;
+    }
+    if (r == 0) {
+      co[3 * JJ + 2 * R] = Dp;
+      co[3 * JJ + 2 * R + 1] = zpp;
+      p.parts[3LL * chain] = logdet;
+      p.parts[3LL * chain + 1] = quad;
+      p.parts[3LL * chain + 2] = minD;
+    }
+    return;
+  }
   if (r == 0) {
     const T ll = T(-0.5) * (logdet + quad + static_cast<T>(nv) * T(kLog2Pi));
     const bool ok = (minD > T(0)) && isfinite(ll);
@@ -353,10 +410,12 @@ struct BwdArgs {
   T *abar, *bbar, *cbar, *dbar, *ybar, *s2bar, *tb, *dtb;
   T* carry;  // (B, R, R) scratch, or null: shared memory
   T* chunk;  // (B, chunk_len(J, ks)) scratch, or null: shared memory
+  const T* ain;  // carry entries: the adjoint carry in and out
+  T* aout;
   int B, J, N, kc, ks;
 };
 
-template <typename T, bool PerLaneT>
+template <typename T, bool PerLaneT, bool Carry>
 __global__ void __launch_bounds__(kMaxThreads)
 wide_bwd_kernel(const BwdArgs<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -369,10 +428,14 @@ wide_bwd_kernel(const BwdArgs<T> p) {
   const long long cj = static_cast<long long>(chain) * J + i;
   const long long cN = static_cast<long long>(chain) * N;
   const T gl = p.g[chain];
+  const long long CA = 3LL * J * J + 2 * J;  // adjoint carry values a chain
   if (gl == T(0)) {  // no seed (a -inf chain): exact zeros, whatever the tables hold
     if (act && h == 0) p.abar[cj] = p.bbar[cj] = p.cbar[cj] = p.dbar[cj] = T(0);
     for (int n = r; n < N; n += blockDim.x)
       p.ybar[cN + n] = p.s2bar[cN + n] = p.tb[cN + n] = p.dtb[cN + n] = T(0);
+    if (Carry) {
+      for (long long e = r; e < CA; e += blockDim.x) p.aout[chain * CA + e] = T(0);
+    }
     return;
   }
   const T* t = p.t;
@@ -391,6 +454,7 @@ wide_bwd_kernel(const BwdArgs<T> p) {
     di = p.d[cj];
   }
   auto step_dt = [&](int m) -> T {
+    if (Carry) return dt[m];
     if (m == 0) return T(0);
     return dt ? dt[m - 1] : t[m] - t[m - 1];
   };
@@ -417,8 +481,21 @@ wide_bwd_kernel(const BwdArgs<T> p) {
   const int lo_stride = h ? 1 : ld;
   const int hi_base = (h + 1) * blk + i;
 
-  for (long long e = r; e < static_cast<long long>(R) * R; e += blockDim.x) G[e] = T(0);
-  T cp = T(0);  // deferred cotangent of pre_{m+1}, row r
+  // G by columns, (rr, cc) at cc R + rr; an adjoint carry holds P00, M01
+  // and P11 row-major (M10 = M01^T)
+  const T* ain = Carry ? p.ain + chain * CA : nullptr;
+  for (long long e = r; e < static_cast<long long>(R) * R; e += blockDim.x) {
+    T v = T(0);
+    if (Carry) {
+      const int rr = static_cast<int>(e % R), cc = static_cast<int>(e / R);
+      const int hr = rr >= J, hc = cc >= J;
+      const int ir = rr - hr * J, ic = cc - hc * J;
+      v = (hr && !hc) ? ain[JJ + static_cast<long long>(ic) * J + ir]
+                      : ain[(hr + hc) * JJ + static_cast<long long>(ir) * J + ic];
+    }
+    G[e] = v;
+  }
+  T cp = (Carry && act) ? ain[3 * JJ + r] : T(0);  // deferred cotangent of pre_{m+1}, row r
   T ab = T(0), bb = T(0), cb = T(0), db = T(0), sumabar = T(0);
   const int nck = (N + kc - 1) / kc;
 
@@ -625,21 +702,30 @@ wide_bwd_kernel(const BwdArgs<T> p) {
     p.cbar[cj] = cb;
     p.dbar[cj] = db;
   }
+  if (Carry && act) {  // G's row r (this thread's own) and cpre at the block's first step
+    T* ao = p.aout + chain * CA;
+    for (int cc = h * J; cc < R; ++cc) {
+      const int hc = cc >= J;
+      ao[(h + hc) * JJ + static_cast<long long>(i) * J + (cc - hc * J)] = G[cc * R + r];
+    }
+    ao[3 * JJ + r] = cp;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename T, int G, bool Aug>
+template <typename T, int G, bool Aug, bool Carry = false>
 int launch_fwd(const FwdArgs<T>& p, cudaStream_t stream) {
   if (p.J < 1 || p.J > kMaxTerms || (G == kPerLane && p.n_valid == nullptr) ||
-      (Aug && p.kc < 1))
+      (Aug && p.kc < 1) ||
+      (Carry && (p.dt == nullptr || p.cin == nullptr || p.cout == nullptr || p.parts == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.B <= 0 || p.N <= 0) return static_cast<int>(cudaSuccess);
   const long long smem = fwd_smem_len(p.J, p.state == nullptr) * static_cast<long long>(sizeof(T));
   if (smem > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = wide_fwd_kernel<T, G, Aug>;
+  auto kern = wide_fwd_kernel<T, G, Aug, Carry>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -647,16 +733,17 @@ int launch_fwd(const FwdArgs<T>& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool PerLaneT>
+template <typename T, bool PerLaneT, bool Carry = false>
 int launch_bwd(const BwdArgs<T>& p, cudaStream_t stream) {
   if (p.J < 1 || p.J > kMaxTerms || p.kc < 1 || p.ks < 1 || p.ks > p.kc || p.ks > kMaxSub ||
-      (PerLaneT && p.n_valid == nullptr))
+      (PerLaneT && p.n_valid == nullptr) ||
+      (Carry && (p.dt == nullptr || p.ain == nullptr || p.aout == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.B <= 0 || p.N <= 0) return static_cast<int>(cudaSuccess);
   const long long smem = bwd_smem_len(p.J, p.ks, p.carry == nullptr, p.chunk == nullptr) *
                          static_cast<long long>(sizeof(T));
   if (smem > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = wide_bwd_kernel<T, PerLaneT>;
+  auto kern = wide_bwd_kernel<T, PerLaneT, Carry>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -700,13 +787,14 @@ void set_residuals(FwdArgs<T>& p, void* W0t, void* W1t, void* P0t, void* P1t, vo
   p.kc = kc;
 }
 
-template <typename T, bool PerLaneT>
+template <typename T, bool PerLaneT, bool Carry = false>
 int bwd_entry(const void* a, const void* b, const void* c, const void* d, const void* t,
               const void* dt, const void* g, const void* n_valid, const void* W0t,
               const void* W1t, const void* P0t, const void* P1t, const void* Dt,
               const void* ZPt, const void* Tcp, void* abar, void* bbar, void* cbar,
               void* dbar, void* ybar, void* s2bar, void* tb, void* dtb, void* carry,
-              void* chunk, int B, int J, int N, int kc, int ks, void* stream) {
+              void* chunk, int B, int J, int N, int kc, int ks, void* stream,
+              const void* ain = nullptr, void* aout = nullptr) {
   BwdArgs<T> p{};
   p.a = static_cast<const T*>(a);
   p.b = static_cast<const T*>(b);
@@ -733,12 +821,14 @@ int bwd_entry(const void* a, const void* b, const void* c, const void* d, const 
   p.dtb = static_cast<T*>(dtb);
   p.carry = static_cast<T*>(carry);
   p.chunk = static_cast<T*>(chunk);
+  p.ain = static_cast<const T*>(ain);
+  p.aout = static_cast<T*>(aout);
   p.B = B;
   p.J = J;
   p.N = N;
   p.kc = kc;
   p.ks = ks;
-  return launch_bwd<T, PerLaneT>(p, static_cast<cudaStream_t>(stream));
+  return launch_bwd<T, PerLaneT, Carry>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -817,6 +907,44 @@ extern "C" {
                               chunk, B, J, N, kc, ks, stream);                           \
   }
 
+#define PIORAN_WIDE_FWD_CARRY(NAME, T)                                                    \
+  int NAME(const void* a, const void* b, const void* c, const void* d, const void* t,    \
+           const void* dt, const void* y, const void* s2, const void* cin, void* cout,   \
+           void* parts, void* state, int B, int J, int N, void* stream) {                \
+    FwdArgs<T> p = fwd_args<T>(a, b, c, d, t, dt, y, s2, nullptr, nullptr, state, B, J, N); \
+    p.cin = static_cast<const T*>(cin);                                                   \
+    p.cout = static_cast<T*>(cout);                                                       \
+    p.parts = static_cast<T*>(parts);                                                     \
+    return launch_fwd<T, kShared, false, true>(p, static_cast<cudaStream_t>(stream));     \
+  }
+
+#define PIORAN_WIDE_FWD_AUG_CARRY(NAME, T)                                                \
+  int NAME(const void* a, const void* b, const void* c, const void* d, const void* t,    \
+           const void* dt, const void* y, const void* s2, void* W0t, void* W1t,          \
+           void* P0t, void* P1t, void* Dt, void* ZPt, void* Tcp, const void* cin,        \
+           void* cout, void* parts, void* state, int B, int J, int N, int kc,            \
+           void* stream) {                                                               \
+    FwdArgs<T> p = fwd_args<T>(a, b, c, d, t, dt, y, s2, nullptr, nullptr, state, B, J, N); \
+    set_residuals<T>(p, W0t, W1t, P0t, P1t, Dt, ZPt, Tcp, kc);                            \
+    p.cin = static_cast<const T*>(cin);                                                   \
+    p.cout = static_cast<T*>(cout);                                                       \
+    p.parts = static_cast<T*>(parts);                                                     \
+    return launch_fwd<T, kShared, true, true>(p, static_cast<cudaStream_t>(stream));      \
+  }
+
+#define PIORAN_WIDE_BWD_CARRY(NAME, T)                                                    \
+  int NAME(const void* a, const void* b, const void* c, const void* d, const void* t,    \
+           const void* dt, const void* g, const void* W0t, const void* W1t,              \
+           const void* P0t, const void* P1t, const void* Dt, const void* ZPt,            \
+           const void* Tcp, void* abar, void* bbar, void* cbar, void* dbar, void* ybar,  \
+           void* s2bar, void* tb, void* dtb, const void* ain, void* aout, void* carry,   \
+           void* chunk, int B, int J, int N, int kc, int ks, void* stream) {             \
+    return bwd_entry<T, false, true>(a, b, c, d, t, dt, g, nullptr, W0t, W1t, P0t, P1t,   \
+                                     Dt, ZPt, Tcp, abar, bbar, cbar, dbar, ybar, s2bar,  \
+                                     tb, dtb, carry, chunk, B, J, N, kc, ks, stream,     \
+                                     ain, aout);                                         \
+  }
+
 PIORAN_WIDE_FWD(celerite_wide_fwd_f32, float)
 PIORAN_WIDE_FWD(celerite_wide_fwd_f64, double)
 PIORAN_WIDE_FWD_MULTI(celerite_wide_fwd_multi_f32, float)
@@ -831,6 +959,12 @@ PIORAN_WIDE_BWD(celerite_wide_bwd_f32, float)
 PIORAN_WIDE_BWD(celerite_wide_bwd_f64, double)
 PIORAN_WIDE_BWD_MULTI(celerite_wide_bwd_multi_f32, float)
 PIORAN_WIDE_BWD_MULTI(celerite_wide_bwd_multi_f64, double)
+PIORAN_WIDE_FWD_CARRY(celerite_wide_fwd_carry_f32, float)
+PIORAN_WIDE_FWD_CARRY(celerite_wide_fwd_carry_f64, double)
+PIORAN_WIDE_FWD_AUG_CARRY(celerite_wide_fwd_aug_carry_f32, float)
+PIORAN_WIDE_FWD_AUG_CARRY(celerite_wide_fwd_aug_carry_f64, double)
+PIORAN_WIDE_BWD_CARRY(celerite_wide_bwd_carry_f32, float)
+PIORAN_WIDE_BWD_CARRY(celerite_wide_bwd_carry_f64, double)
 
 const char* celerite_wide_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

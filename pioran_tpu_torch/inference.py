@@ -13,7 +13,9 @@ the ultranest layout (``chains/equal_weighted_post.txt``,
 single-bending model to many ragged light curves as one ChEES ensemble.
 NS and SMC runs resume from checkpoints (``resume=True``), and every
 sampler but ADVI shards over the ranks of a ``DeviceMesh`` (``mesh=``,
-``parallel/``). The likelihood of a batch of parameter vectors is one
+``parallel/``). A builder's ``seq_mesh=`` splits the light curve's time
+axis over a mesh's ranks instead (``parallel/seq_scan.py``); the samplers
+then run replicated on every rank. The likelihood of a batch of parameter vectors is one
 batched parameter -> celerite coefficient map (plain PyTorch: the PSD approximation or
 CARMA's partial fractions) feeding the CUDA celerite kernels on the card
 (K1 or, for ragged per-chain grids, K2 without a gradient; K3 and K4
@@ -40,6 +42,7 @@ from .models.gp import ConditionedGP, CustomMean, ScalableGP, _mean_vector
 from .models.kernels import CeleriteKernel
 from .models.psd import DoubleBendingPowerLaw, SingleBendingPowerLaw
 from .ops.approx import approx
+from .ops.celerite import logl
 from .ops.cuda_celerite import batched_loglike, batched_loglike_multi
 from .priors import (
     Gamma,
@@ -85,6 +88,8 @@ class GPModelSpec:
     PSD class whose columns ``paramnames_split["psd"]`` name (``None``
     for CARMA, as in the JAX package). Tensors live on ``device`` in
     ``dtype``. ``carma_pq`` is (p, q) for a CARMA model, else ``None``.
+    ``seq_mesh`` is the mesh whose ``seq_axis`` splits the time axis
+    (the builders' ``seq_mesh=``), else ``None``.
     """
 
     prior: PriorSet
@@ -102,6 +107,8 @@ class GPModelSpec:
     device: torch.device = torch.device("cpu")
     dtype: torch.dtype = DEFAULT_DTYPE
     carma_pq: Optional[Tuple[int, int]] = None
+    seq_mesh: object = None
+    seq_axis: str = "seq"
 
     def logpost_batch(self, Z):
         """(B, dim) unconstrained rows -> (B,) log-posteriors: the prior's
@@ -115,9 +122,32 @@ class GPModelSpec:
         return self.logpost_batch(z[None])[0]
 
 
-def _batched_loglike_from_coeffs(coeff_fn, t, dt=None):
+def _batched_loglike_from_coeffs(coeff_fn, t, dt=None, seq_mesh=None, seq_axis="seq"):
     """(B, dim) -> (B,) likelihood: the batched parameter -> coefficient
-    map feeding the batched celerite likelihood."""
+    map feeding the batched celerite likelihood.
+
+    With ``seq_mesh`` the time axis is split over the ranks of its
+    ``seq_axis`` instead: the batch runs through the pipelined blockwise
+    scan (``parallel.seq_scan.logl_seq_pipelined``), in as many
+    micro-batches as the axis has ranks."""
+    if seq_mesh is not None:
+        from .parallel.seq_scan import logl_seq_pipelined
+
+        n_dev = axis_size(seq_mesh, seq_axis)
+
+        def loglike_batch_seq(TH):
+            # the pipeline needs B divisible by its micro-batch count (the
+            # axis size), and callers such as the final per-sample sweep
+            # come with any B: pad with copies of row 0, slice the result
+            B = TH.shape[0]
+            pad = (-B) % n_dev
+            if pad:
+                TH = torch.cat([TH, TH[:1].expand(pad, -1)])
+            a, b, c, d, yv, s2 = coeff_fn(TH)
+            ll = logl_seq_pipelined(a, b, c, d, t, yv, s2, seq_mesh, seq_axis, dt=dt)
+            return ll[:B] if pad else ll
+
+        return loglike_batch_seq
 
     def loglike_batch(TH):
         a, b, c, d, yv, s2 = coeff_fn(TH)
@@ -195,20 +225,33 @@ def _gp_model(lc: _LightCurve, kernel_fn, mean_fn, noise_fn):
 
 
 def _spec(lc: _LightCurve, prior, names, paramnames_split, coeff_fn, gp_model, psd_model,
-          **extra) -> GPModelSpec:
+          seq_mesh=None, seq_axis="seq", **extra) -> GPModelSpec:
     """The GPModelSpec of a model whose batched coefficient map is
-    ``coeff_fn``: (B, dim) theta -> (a, b, c, d, y - mean, sigma^2)."""
-    loglike_batch = _batched_loglike_from_coeffs(coeff_fn, lc.t, dt=lc.dt64)
+    ``coeff_fn``: (B, dim) theta -> (a, b, c, d, y - mean, sigma^2).
+    With ``seq_mesh`` its time axis is split over the mesh's
+    ``seq_axis``: the spec's device must be this rank's on the mesh and
+    the axis size must divide N."""
+    if seq_mesh is not None:
+        check_device(seq_mesh, lc.device)
+        n_dev = axis_size(seq_mesh, seq_axis)
+        if lc.t.shape[0] % n_dev:
+            raise ValueError(f"N={lc.t.shape[0]} not divisible by mesh axis size {n_dev}")
+    loglike_batch = _batched_loglike_from_coeffs(coeff_fn, lc.t, dt=lc.dt64,
+                                                 seq_mesh=seq_mesh, seq_axis=seq_axis)
 
     def loglike(th):
-        return loglike_batch(th[None])[0]
+        if seq_mesh is None:
+            return loglike_batch(th[None])[0]
+        a, b, c, d, yv, s2 = coeff_fn(th[None])
+        return logl(a[0], b[0], c[0], d[0], lc.t, yv[0], s2[0], dt=lc.dt64, mesh=seq_mesh,
+                    seq_axis=seq_axis, seq_min_n=0)
 
     return GPModelSpec(
         prior=prior, loglike=loglike, names=names,
         gp_model=gp_model, psd_model=psd_model, paramnames_split=paramnames_split,
         t=lc.t.cpu().numpy(), y=lc.y.cpu().numpy(), yerr=lc.yerr.cpu().numpy(),
         f_min=lc.f_min, f_max=lc.f_max, loglike_batch=loglike_batch,
-        device=lc.device, dtype=lc.t.dtype, **extra)
+        device=lc.device, dtype=lc.t.dtype, seq_mesh=seq_mesh, seq_axis=seq_axis, **extra)
 
 
 def single_bending_model(
@@ -222,6 +265,8 @@ def single_bending_model(
     is_integrated_power: bool = True,
     device=None,
     dtype: torch.dtype = DEFAULT_DTYPE,
+    seq_mesh=None,
+    seq_axis: str = "seq",
 ) -> GPModelSpec:
     """The reference's single-bending power-law model with its priors:
 
@@ -239,8 +284,15 @@ def single_bending_model(
     ``device`` (default: the card; ``device="cpu"`` for the CPU) and
     ``dtype`` place the data and every likelihood evaluation. On the card
     the likelihood and its gradient run the hand-written CUDA kernels;
-    with no card and no ``device`` this raises ``RuntimeError``. The
-    other builders take the same two keywords.
+    with no card and no ``device`` this raises ``RuntimeError``.
+
+    ``seq_mesh`` (optional): a ``DeviceMesh`` whose ``seq_axis`` splits
+    the time axis over its ranks, for series too long for one device
+    (``parallel.seq_scan``): ``loglike_batch`` runs the pipelined
+    blockwise scan (B padded with copies of row 0 to a multiple of the
+    axis size), ``loglike`` the one-chain form. Every rank builds the same
+    spec on its own device; N must be divisible by the axis size. The
+    other builders take the same four keywords.
     """
     lc = _light_curve(t, y, yerr, device, dtype)
     f_min, f_max = lc.f_min, lc.f_max
@@ -281,7 +333,7 @@ def single_bending_model(
                  {"psd": ["α₁", "f₁", "α₂"], "norm": "variance", "scale_err": "ν", "mean": "μ",
                   **({"log_transform": "c"} if use_c else {})},
                  coeff_fn, _gp_model(lc, kernel_fn, lambda TH: TH[:, 5:6], noise_fn),
-                 SingleBendingPowerLaw)
+                 SingleBendingPowerLaw, seq_mesh=seq_mesh, seq_axis=seq_axis)
 
 
 def double_bending_model(
@@ -290,6 +342,8 @@ def double_bending_model(
     basis_function: str = "SHO",
     device=None,
     dtype: torch.dtype = DEFAULT_DTYPE,
+    seq_mesh=None,
+    seq_axis: str = "seq",
 ) -> GPModelSpec:
     """The reference's double-bending power-law model
     (examples/ultranest/double_pl.jl):
@@ -330,7 +384,7 @@ def double_bending_model(
                  {"psd": ["α₁", "f₁", "α₂", "f₂", "α₃"], "norm": "variance",
                   "scale_err": "ν", "mean": "μ"},
                  coeff_fn, _gp_model(lc, kernel_fn, lambda TH: TH[:, 7:8], noise_fn),
-                 DoubleBendingPowerLaw)
+                 DoubleBendingPowerLaw, seq_mesh=seq_mesh, seq_axis=seq_axis)
 
 
 def periodic_rednoise_model(
@@ -339,6 +393,8 @@ def periodic_rednoise_model(
     basis_function: str = "SHO",
     device=None,
     dtype: torch.dtype = DEFAULT_DTYPE,
+    seq_mesh=None,
+    seq_axis: str = "seq",
 ) -> GPModelSpec:
     """A periodic signal in red noise: the single-bending GP with a
     sinusoidal :class:`~pioran_tpu_torch.models.gp.CustomMean` (reference
@@ -387,7 +443,8 @@ def periodic_rednoise_model(
     return _spec(lc, prior, ["α₁", "α₂", "f₁", "variance", "ν", "μ", "A", "ϕ", "T₀"],
                  {"psd": ["α₁", "f₁", "α₂"], "norm": "variance", "scale_err": "ν",
                   "mean": ["A", "ϕ", "T₀", "μ"]},
-                 coeff_fn, _gp_model(lc, kernel_fn, mean, noise_fn), SingleBendingPowerLaw)
+                 coeff_fn, _gp_model(lc, kernel_fn, mean, noise_fn), SingleBendingPowerLaw,
+                 seq_mesh=seq_mesh, seq_axis=seq_axis)
 
 
 def carma_model(
@@ -399,6 +456,8 @@ def carma_model(
     sigma_n: float = float(np.sqrt(2.0)),
     device=None,
     dtype: torch.dtype = DEFAULT_DTYPE,
+    seq_mesh=None,
+    seq_axis: str = "seq",
 ) -> GPModelSpec:
     """The CARMA(p, q) model (reference docs/src/carma.md:63-200).
 
@@ -492,7 +551,7 @@ def carma_model(
                   "mean": "μ", **({"log_transform": "c"} if use_c else {})},
                  coeff_fn, _gp_model(lc, kernel_fn, lambda TH: TH[:, i_var + 2:i_var + 3],
                                      noise_fn),
-                 None, carma_pq=(p, q))
+                 None, seq_mesh=seq_mesh, seq_axis=seq_axis, carma_pq=(p, q))
 
 
 # final per-sample likelihood sweeps process at most this many samples
@@ -540,10 +599,11 @@ def advi_seeded_inits(
 
 
 def _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc, ns_move, frac_remain,
-            shard, checkpoint_dir):
+            shard, checkpoint_dir, group=None):
     """Nested sampling: (theta draws, the NS entries of the results). Under
     a mesh its sweeps fan out over the ranks, ``n_delete`` rounded up to a
-    multiple of their number; with ``checkpoint_dir`` it resumes."""
+    multiple of their number; with ``checkpoint_dir`` it resumes, rank 0
+    of ``group`` (the ranks a replicated run spans) writing."""
     prior = spec.prior
 
     def loglike_u_batch(U):
@@ -559,8 +619,7 @@ def _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc, ns_move, frac_re
               move=ns_move, max_iters=max(8 * num_particles // n_delete, 400),
               frac_remain=frac_remain, dtype=spec.dtype)
     if checkpoint_dir is not None:
-        res = run_ns_resumable(loglike_u_batch, gen, checkpoint_dir,
-                               group=None if shard is None else dist.group.WORLD, **kw)
+        res = run_ns_resumable(loglike_u_batch, gen, checkpoint_dir, group=group, **kw)
     else:
         res = run_ns(loglike_u_batch, gen, **kw)
     n_eq = max(num_samples * 4, 4000)
@@ -716,14 +775,27 @@ def _shard_layout(mesh, mesh_axis, device) -> Optional[_Shard]:
     return _Shard(mesh, axis, axis_size(mesh, axis))
 
 
-def _is_writer(shard: Optional[_Shard]) -> bool:
-    return shard is None or dist.get_rank() == 0
-
-
-def _written(shard: Optional[_Shard]) -> None:
-    """Every rank waits until rank 0 has written the run's files."""
+def _replica_group(spec: GPModelSpec, shard: Optional[_Shard]):
+    """The process group a run spans: the whole group under a chain mesh,
+    the seq axis's group for a spec whose time axis is split (every rank
+    of it runs the sampler replicated), else None (one process)."""
     if shard is not None:
-        dist.barrier()
+        return dist.group.WORLD
+    if spec.seq_mesh is not None:
+        return axis_group(spec.seq_mesh, spec.seq_axis)[0]
+    return None
+
+
+def _is_writer(group) -> bool:
+    """Whether this process writes a run's files: rank 0 of ``group``."""
+    return group is None or dist.get_rank(group) == 0
+
+
+def _written(group) -> None:
+    """Every rank of ``group`` waits until its rank 0 has written the
+    run's files."""
+    if group is not None:
+        dist.barrier(group=group)
 
 
 def _run_advi(spec, gen, num_warmup, num_samples):
@@ -809,6 +881,14 @@ def run_inference(
     all of them); ``num_particles`` or ``num_chains`` must be divisible
     by their size. Every rank returns the same results, with a ``mesh``
     entry; rank 0 writes the files and checkpoints.
+
+    A spec built with ``seq_mesh=`` (its time axis split over the ranks of
+    that mesh's axis) runs every sampler replicated on every rank of the
+    axis, from the same seed: each likelihood sweep is one collective
+    pipelined scan, every rank gets the same values, and the results are
+    the same on every rank. Rank 0 of the axis writes the files and NS's
+    checkpoints; SMC's ``resume`` is not supported there, and ``mesh=``
+    over the same ranks raises ``ValueError``.
     """
     if sampler not in ("smc", "ns", "nuts", "chees", "advi"):
         raise ValueError(
@@ -821,7 +901,14 @@ def run_inference(
     if resume and mesh is not None and sampler == "smc":
         raise NotImplementedError(
             "resume is not supported for the mesh-sharded SMC; drop mesh= or resume=")
+    if spec.seq_mesh is not None and mesh is not None:
+        raise ValueError("the spec's time axis is split over its seq_mesh's ranks, which run "
+                         "the sampler replicated; mesh= cannot shard its batch over them too")
+    if resume and spec.seq_mesh is not None and sampler == "smc":
+        raise NotImplementedError(
+            "resume is not supported for SMC on a seq_mesh spec; drop seq_mesh= or resume=")
     shard = _shard_layout(mesh, mesh_axis, spec.device)
+    group = _replica_group(spec, shard)
     if shard is not None and sampler != "advi":
         batch = num_particles if sampler in ("ns", "smc") else num_chains
         what = "num_particles" if sampler in ("ns", "smc") else "num_chains"
@@ -834,7 +921,7 @@ def run_inference(
         theta, extra = _run_smc(spec, gen, num_particles, num_moves, smc_move, shard, ckpt)
     elif sampler == "ns":
         theta, extra = _run_ns(spec, gen, num_particles, num_samples, num_ns_mcmc,
-                               ns_move, frac_remain, shard, ckpt)
+                               ns_move, frac_remain, shard, ckpt, group)
     elif sampler == "nuts":
         theta, extra = _run_nuts(spec, gen, num_chains, num_warmup, num_samples, init, shard)
     elif sampler == "chees":
@@ -868,7 +955,7 @@ def run_inference(
             "n_devices_sharded": shard.n,
         }
 
-    if log_dir and _is_writer(shard):
+    if log_dir and _is_writer(group):
         # cap the written posterior at 20k equal-weighted rows
         theta_out = theta
         if theta.shape[0] > 20000:
@@ -877,7 +964,7 @@ def run_inference(
             theta_out = theta[np.sort(sel)]
         _write_ultranest(log_dir, spec.names, theta_out, results)
     if log_dir:
-        _written(shard)
+        _written(group)
     results["samples"] = theta
     return results
 
@@ -1076,10 +1163,10 @@ def run_inference_many(
             "converged": (bool(np.nanmax(rhat) < 1.05)
                           if np.any(np.isfinite(rhat)) else False),
         }
-        if log_dir and _is_writer(shard):
+        if log_dir and _is_writer(None if shard is None else dist.group.WORLD):
             _write_ultranest(os.path.join(log_dir, f"ds{i}"), names, th, res)
         res["samples"] = th
         results.append(res)
     if log_dir:
-        _written(shard)
+        _written(None if shard is None else dist.group.WORLD)
     return results

@@ -28,7 +28,7 @@ from . import direct as _direct
 
 __all__ = ["CeleriteUV", "exp_neg", "build_uv", "stable_sum",
            "celerite_factor_solve", "logl", "logl_masked", "log_likelihood",
-           "simulate", "predict_matmul", "predict"]
+           "simulate", "predict_matmul", "predict", "SEQ_SHARD_MIN_N"]
 
 
 class CeleriteUV(NamedTuple):
@@ -179,10 +179,55 @@ def celerite_factor_solve(a, b, c, d, t, y, sigma2, dt=None):
     return z, D, W, logdetD, uv
 
 
-def logl(a, b, c, d, t, y, sigma2, dt=None):
+# series at or above this length run through the sequence-sharded
+# blockwise scan when a mesh is given (below it, splitting a short series
+# is only hand-off overhead)
+SEQ_SHARD_MIN_N = 8192
+
+
+def _seq_sharded(t, mesh, seq_axis, seq_min_n) -> bool:
+    """Whether a series on the grid ``t`` runs through the blockwise scan
+    over ``mesh``: N >= ``seq_min_n`` (default ``SEQ_SHARD_MIN_N``) and N
+    divisible by the axis size (the JAX package's rule)."""
+    if mesh is None:
+        return False
+    from ..parallel.mesh import axis_size
+
+    cap = SEQ_SHARD_MIN_N if seq_min_n is None else seq_min_n
+    return t.shape[0] >= cap and t.shape[0] % axis_size(mesh, seq_axis) == 0
+
+
+def _logl_seq(a, b, c, d, t, y, sigma2, mesh, seq_axis, dt):
+    """``parallel.seq_scan.logl_seq_sharded`` on (..., J) coefficients and
+    (..., N) rows, the leading axes flattened into one micro-batch."""
+    from ..parallel.seq_scan import logl_seq_sharded
+
+    batch = torch.broadcast_shapes(a.shape[:-1], y.shape[:-1], sigma2.shape[:-1])
+    J, N = a.shape[-1], t.shape[0]
+    flat = lambda x, n: x.expand(batch + (n,)).reshape(-1, n)  # noqa: E731
+    ll = logl_seq_sharded(*(flat(x, J) for x in (a, b, c, d)), t, flat(y, N),
+                          flat(sigma2, N), mesh, seq_axis, dt=dt)
+    return ll.reshape(batch)
+
+
+def logl(a, b, c, d, t, y, sigma2, dt=None, mesh=None, seq_axis: str = "seq",
+         seq_min_n=None):
     """Celerite GP log-likelihood, (...,):
     -logdetD/2 - N log(2 pi)/2 - y^T K^{-1} y / 2, and -inf unless every
-    D_n > 0 and the value is finite."""
+    D_n > 0 and the value is finite.
+
+    ``mesh`` (optional): a ``DeviceMesh`` whose ``seq_axis`` carries the
+    time dimension. Series of N >= ``seq_min_n`` (default
+    ``SEQ_SHARD_MIN_N``) whose N the axis size divides then run through
+    the blockwise scan over its ranks
+    (``parallel.seq_scan.logl_seq_sharded``: the carry entries of the
+    kernels on the card, each rank one block of the series); shorter
+    series ignore the mesh. Every rank of the axis calls this with the
+    same arguments. The same values and gradients either way, up to the
+    order of the sums.
+    """
+    if _seq_sharded(t, mesh, seq_axis, seq_min_n):
+        return _logl_seq(a, b, c, d, t, y, sigma2, mesh, seq_axis, dt)
     z, D, _, logdetD, _ = celerite_factor_solve(a, b, c, d, t, y, sigma2, dt=dt)
     return _logl_from_solve(y, z, D, logdetD)
 
@@ -235,7 +280,8 @@ def _batched(kernel, *rows):
     return (batch, [flat(x, J) for x in coefs], [flat(x, x.shape[-1]) for x in rows])
 
 
-def log_likelihood(kernel, t, y, sigma2, dt=None):
+def log_likelihood(kernel, t, y, sigma2, dt=None, mesh=None, seq_axis: str = "seq",
+                   seq_min_n=None):
     """Log-likelihood (...,) of ``y`` (..., N) under the kernel's
     (..., J) coefficients, on the grid ``t`` (N,) with noise variances
     ``sigma2`` (..., N) (reference celerite_solver.jl:262-294).
@@ -244,10 +290,15 @@ def log_likelihood(kernel, t, y, sigma2, dt=None):
     hand-written kernel K1, or K3 and K4 when an input requires a
     gradient; on CPU tensors their plain versions. ``dt`` (N-1,) are
     host-f64 spacings. -inf where the factorisation is not positive
-    definite, with a zero gradient there.
+    definite, with a zero gradient there. ``mesh``, ``seq_axis`` and
+    ``seq_min_n`` shard long series over a mesh's time axis, as for
+    :func:`logl`.
     """
     from .cuda_celerite import batched_loglike  # it imports this module
 
+    if _seq_sharded(t, mesh, seq_axis, seq_min_n):
+        a, b, c, d = kernel.coefficients()
+        return _logl_seq(a, b, c, d, t, y, sigma2, mesh, seq_axis, dt)
     batch, (a, b, c, d), (y, sigma2) = _batched(kernel, y, sigma2)
     return batched_loglike(a, b, c, d, t, y, sigma2, dt).reshape(batch)
 

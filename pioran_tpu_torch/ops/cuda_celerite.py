@@ -28,6 +28,14 @@ kernel ``_kernel`` (K0, launched by ``batched_loglike_pallas``) becomes
   (nor has the TPU kernel): its wrappers raise on an input that requires
   a gradient.
 
+- :func:`loglike_carry` is K1's carry entry: one block of a series split
+  along time, started from the state the previous block ended with
+  (``cuda_celerite_vjp``'s carry layout), returning the block's partials
+  (Kahan sums of log|D| and zp^2 / D, min D) and its final state; the
+  time-sharded scan (``parallel/seq_scan.py``) runs it for its sweeps
+  without a gradient. ``CARRY_LAUNCHES`` and ``WIDE_CARRY_LAUNCHES``
+  count its launches.
+
 Past ``NARROW_TERMS`` = 32 terms the kernels' wide forms run instead,
 from ``csrc/celerite_wide.cu``: one thread block a chain, a thread a row
 of the 2J x 2J state, up to ``MAX_TERMS`` terms.
@@ -49,12 +57,14 @@ import torch
 from .. import _build
 from .celerite import exp_neg
 from .cuda_celerite_vjp import (
-    MAX_TERMS, NARROW_TERMS, _call, _lanes, _masked, _scratch, _wide_lib, bwd, check_inputs,
-    fwd_aug, live_steps, log2pi_terms, wide_fwd_scratch)
+    MAX_TERMS, NARROW_TERMS, _call, _lanes, _masked, _scratch, _wide_lib, block_lanes, bwd,
+    carry_width, check_carry, check_inputs, fwd_aug, initial_state, live_steps, log2pi_terms,
+    pack_carry, wide_fwd_scratch)
 
 __all__ = ["batched_loglike", "batched_loglike_plain", "batched_loglike_multi",
            "batched_loglike_multi_plain", "build_tables", "loglike_from_tables",
            "loglike_from_tables_plain", "batched_loglike_tables", "tables_launch_shape",
+           "loglike_carry",
            "MAX_TERMS", "NARROW_TERMS"]
 
 LAUNCHES = 0
@@ -63,24 +73,29 @@ TABLES_LAUNCHES = 0
 WIDE_LAUNCHES = 0
 WIDE_MULTI_LAUNCHES = 0
 WIDE_TABLES_LAUNCHES = 0
+CARRY_LAUNCHES = 0
+WIDE_CARRY_LAUNCHES = 0
 _LOG2PI = math.log(2.0 * math.pi)
 _LIB: Optional[ctypes.CDLL] = None
 _TABLES_LIB: Optional[ctypes.CDLL] = None
 
 
-def _plain(a, b, c, d, t, y, sigma2, dt, n_valid):
+def _plain(a, b, c, d, t, y, sigma2, dt, n_valid, carry=None):
     """The kernels' forward loop over N, for a shared t (N,) or per-lane
-    t (B, N) with ``n_valid`` (B,) (None: every step counts)."""
+    t (B, N) with ``n_valid`` (B,) (None: every step counts).
+
+    With a forward ``carry`` (B, 3 J^2 + 4 J + 2) this is K1's carry
+    entry: the loop starts from the carried state, ``dt`` (N,) is every
+    step's spacing with the boundary's first, and the result is
+    ``(partials (B, 3), carry out)``: the Kahan sums of log|D| and
+    zp^2 / D, min D, and the state after the last step."""
     B, J = a.shape
     N = t.shape[-1]
-    lanes_t, lanes_dt, live = _lanes(t, dt, B, n_valid)
+    lanes_t, lanes_dt, live = (_lanes(t, dt, B, n_valid) if carry is None
+                               else block_lanes(t, dt, B))
     zero, inf = a.new_zeros(()), a.new_full((), math.inf)
     suma = torch.sum(a, dim=1)
-    S00 = a.new_zeros(B, J, J)
-    S01 = a.new_zeros(B, J, J)
-    S11 = a.new_zeros(B, J, J)
-    f0, f1, W0, W1 = (a.new_zeros(B, J) for _ in range(4))
-    Dp, zpp = a.new_zeros(B), a.new_zeros(B)
+    S00, S01, S11, W0, W1, f0, f1, Dp, zpp = initial_state(a, carry)
     logdet, clog, quad, cquad = (a.new_zeros(B) for _ in range(4))
     minD = torch.full((B,), math.inf, dtype=a.dtype, device=a.device)
 
@@ -121,6 +136,9 @@ def _plain(a, b, c, d, t, y, sigma2, dt, n_valid):
         quad = t3
         minD = torch.minimum(minD, _masked(live, n, Dn, inf))
 
+    if carry is not None:
+        return (torch.stack([logdet, quad, minD], dim=1),
+                pack_carry(S00, S01, S11, W0, W1, f0, f1, Dp, zpp))
     ll = -0.5 * (logdet + quad + log2pi_terms(N, n_valid, a.dtype))
     ok = (minD > 0) & torch.isfinite(ll)
     return torch.where(ok, ll, torch.full_like(ll, -math.inf))
@@ -159,6 +177,9 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         for fn in (lib.celerite_fwd_multi_f32, lib.celerite_fwd_multi_f64):
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.celerite_fwd_carry_f32, lib.celerite_fwd_carry_f64):
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.celerite_fwd_error_string.argtypes = [ctypes.c_int]
         lib.celerite_fwd_error_string.restype = ctypes.c_char_p
@@ -204,6 +225,51 @@ def _launch(a, b, c, d, t, y, sigma2, dt, n_valid=None):
     else:
         LAUNCHES += 1
     return out
+
+
+def _launch_carry(a, b, c, d, t, y, sigma2, dt, carry):
+    """Run K1's carry entry on CUDA tensors, its wide form past
+    ``NARROW_TERMS`` terms; raise on what it does not take."""
+    global CARRY_LAUNCHES, WIDE_CARRY_LAUNCHES
+    B, J = a.shape
+    dt = check_carry(a, b, c, d, t, y, sigma2, dt, carry, carry_width(J))
+    N = t.shape[0]
+    parts = torch.empty(B, 3, dtype=a.dtype, device=a.device)
+    cout = torch.empty(B, carry_width(J), dtype=a.dtype, device=a.device)
+    if B == 0 or N == 0:
+        return parts, carry.clone()
+    args = [x.contiguous() for x in (a, b, c, d, t, dt, y, sigma2, carry)] + [cout, parts]
+    wide = J > NARROW_TERMS
+    if wide:
+        lib, name = _wide_lib(), "celerite_wide_fwd_carry"
+        errors = lib.celerite_wide_error_string
+        args.append(_scratch(B, wide_fwd_scratch(J, a.dtype), a))
+    else:
+        lib, name = _lib(), "celerite_fwd_carry"
+        errors = lib.celerite_fwd_error_string
+    fn = getattr(lib, name + ("_f32" if a.dtype == torch.float32 else "_f64"))
+    _call(fn, errors, name, a.device, args, (B, J, N))
+    if wide:
+        WIDE_CARRY_LAUNCHES += 1
+    else:
+        CARRY_LAUNCHES += 1
+    return parts, cout
+
+
+def loglike_carry(a, b, c, d, t, y, sigma2, dt, carry):
+    """K1's carry entry, one block of a series split along time:
+    ``(partials (B, 3), carry out)``, no gradient. ``t`` (N,) the block's
+    times, ``dt`` (N,) every step's spacing with the boundary's first (0
+    for the first block), ``carry`` the state (B, 3 J^2 + 4 J + 2) the
+    previous block ended with (``cuda_celerite_vjp.neutral_carry`` for the
+    first). The partials are the Kahan sums of log|D| and zp^2 / D and
+    min D; -1/2 (their sums over the blocks + N log 2 pi) is the
+    log-likelihood. CUDA tensors launch the kernel (or raise), CPU tensors
+    run the plain loop."""
+    if a.is_cuda:
+        return _launch_carry(a, b, c, d, t, y, sigma2, dt, carry)
+    dt = check_carry(a, b, c, d, t, y, sigma2, dt, carry, carry_width(a.shape[1]))
+    return _plain(a, b, c, d, t, y, sigma2, dt, None, carry=carry)
 
 
 def _forward(a, b, c, d, t, y, sigma2, dt, n_valid):

@@ -33,6 +33,23 @@ one thread block a chain and a thread a row of the 2J x 2J state, up to
 ``ops/cuda_celerite.py`` launches. The residual tables are the same for
 both forms.
 
+Carry entries: one block of a series split along time, started from the
+state the previous block ended with, as the TPU kernels' segmented
+launches do with their carry refs and as ``parallel/seq_scan.py`` hands a
+block's state from rank to rank. :func:`fwd_aug_carry` takes the forward
+carry (B, 3 J^2 + 4 J + 2) per chain: S00, S01 and S11 row-major, then W
+and f in the block layout [cos-type; sin-type], then D and zp (all zeros
+is the neutral start of a series; :func:`neutral_carry`), and ``dt`` (N,),
+every step's spacing with the one to the previous block's last point
+first. It returns the block's partials (B, 3), the Kahan sums of log|D|
+and zp^2 / D and min D, the carry after its last step, and the residual
+tables. :func:`bwd_carry` takes the adjoint carry (B, 3 J^2 + 2 J), the
+cotangents of T and pre at the next block's first step (P00 = M00 +
+M00^T, M01, P11 = M11 + M11^T row-major, then cpre; zeros for the last
+block), and returns the block's partial cotangents and the adjoint carry
+at its own first step. ``FWD_AUG_CARRY_LAUNCHES``, ``BWD_CARRY_LAUNCHES``
+and their ``WIDE_`` forms count those launches.
+
 There is no counterpart of the TPU code's VMEM tiling (``auto_tiles``,
 ``fits_vmem``), its scan fallback, or its ``SEG_STEPS`` launch
 segmentation: the tables live in device memory and one launch runs all N
@@ -57,7 +74,8 @@ import torch
 from .. import _build
 from .celerite import exp_neg
 
-__all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "residual_bytes",
+__all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "fwd_aug_carry", "bwd_carry",
+           "carry_width", "adjoint_width", "neutral_carry", "residual_bytes",
            "bwd_launch_shape", "wide_fwd_scratch", "wide_bwd_shape", "check_inputs", "spacings",
            "live_steps", "log2pi_terms", "KC", "MAX_TERMS", "NARROW_TERMS"]
 
@@ -78,7 +96,12 @@ WIDE_FWD_AUG_LAUNCHES = 0
 WIDE_BWD_LAUNCHES = 0
 WIDE_FWD_AUG_MULTI_LAUNCHES = 0
 WIDE_BWD_MULTI_LAUNCHES = 0
+FWD_AUG_CARRY_LAUNCHES = 0
+BWD_CARRY_LAUNCHES = 0
+WIDE_FWD_AUG_CARRY_LAUNCHES = 0
+WIDE_BWD_CARRY_LAUNCHES = 0
 _LIB: Optional[ctypes.CDLL] = None
+_CARRY_LIB: Optional[ctypes.CDLL] = None
 _WIDE_LIB: Optional[ctypes.CDLL] = None
 
 Residuals = Tuple[torch.Tensor, ...]
@@ -158,6 +181,41 @@ def residual_bytes(B: int, J: int, N: int, kc: int = KC,
     item = torch.empty((), dtype=dtype).element_size()
     nck = -(-N // kc)
     return item * B * N * (4 * J + 2), item * B * nck * 3 * J * J
+
+
+def carry_width(J: int) -> int:
+    """Values of the forward carry a chain: S00, S01, S11 (J x J each),
+    W and f (2 J each), D and zp."""
+    return 3 * J * J + 4 * J + 2
+
+
+def adjoint_width(J: int) -> int:
+    """Values of the adjoint carry a chain: P00, M01, P11 (J x J each)
+    and cpre (2 J)."""
+    return 3 * J * J + 2 * J
+
+
+def neutral_carry(B: int, J: int, like: torch.Tensor) -> torch.Tensor:
+    """The forward carry that starts a series, (B, 3 J^2 + 4 J + 2) zeros
+    in ``like``'s dtype on its device; zeros of :func:`adjoint_width` are
+    the adjoint carry that ends one."""
+    return like.new_zeros(B, carry_width(J))
+
+
+def carry_state(carry, J):
+    """(S00, S01, S11 (B, J, J), W0, W1, f0, f1 (B, J), D, zp (B,)):
+    copies of a forward carry's parts."""
+    B, JJ = carry.shape[0], J * J
+    S00, S01, S11 = (carry[:, k * JJ:(k + 1) * JJ].reshape(B, J, J).clone() for k in range(3))
+    W0, W1, f0, f1 = (carry[:, 3 * JJ + k * J:3 * JJ + (k + 1) * J].clone() for k in range(4))
+    return S00, S01, S11, W0, W1, f0, f1, carry[:, -2].clone(), carry[:, -1].clone()
+
+
+def pack_carry(S00, S01, S11, W0, W1, f0, f1, D, zp):
+    """The forward carry (B, 3 J^2 + 4 J + 2) of a chain state."""
+    B = S00.shape[0]
+    return torch.cat([S00.reshape(B, -1), S01.reshape(B, -1), S11.reshape(B, -1),
+                      W0, W1, f0, f1, D[:, None], zp[:, None]], dim=1)
 
 
 def bwd_launch_shape(dtype: torch.dtype, J: int, kc: int, B: int = 1,
@@ -247,22 +305,43 @@ def _masked(live, n, x, fill):
     return x if live is None else torch.where(live[:, n], x, fill)
 
 
-def fwd_aug_plain(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC, n_valid=None):
+def block_lanes(t, dt, B):
+    """(times (B, N), spacings (B, N), live None) of a block of a split
+    series: ``dt`` (N,) holds every step's spacing, the boundary's first."""
+    N = t.shape[-1]
+    return t.expand(B, N), torch.as_tensor(dt, device=t.device).to(t.dtype).expand(B, N), None
+
+
+def initial_state(a, carry):
+    """The recursion's starting (S00, S01, S11, W0, W1, f0, f1, D, zp):
+    zeros, or a forward carry's parts."""
+    B, J = a.shape
+    if carry is not None:
+        return carry_state(carry, J)
+    return (*(a.new_zeros(B, J, J) for _ in range(3)), *(a.new_zeros(B, J) for _ in range(4)),
+            a.new_zeros(B), a.new_zeros(B))
+
+
+def fwd_aug_plain(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC, n_valid=None, carry=None):
     """Plain PyTorch version of K3: ``(ll (B,), residuals)``.
 
     ll is :func:`cuda_celerite.batched_loglike_plain`'s value (with
     per-lane t, ``batched_loglike_multi_plain``'s); residuals are (W0,
     W1, pre0, pre1) (B, N, J), (D, zp) (B, N) and the T checkpoints
     (B, ceil(N / kc), 3, J, J) of steps 0, kc, 2 kc, ...
+
+    With a forward ``carry`` (B, 3 J^2 + 4 J + 2) this is K3's carry
+    entry: ``dt`` (N,) is every step's spacing, the boundary's first, and
+    the result is ``(partials (B, 3), carry out, residuals)``; the
+    partials are the Kahan sums of log|D| and zp^2 / D and min D.
     """
     B, J = a.shape
     N = t.shape[-1]
-    lanes_t, lanes_dt, live = _lanes(t, dt, B, n_valid)
+    lanes_t, lanes_dt, live = (_lanes(t, dt, B, n_valid) if carry is None
+                               else block_lanes(t, dt, B))
     zero, inf = a.new_zeros(()), a.new_full((), math.inf)
     suma = torch.sum(a, dim=1)
-    S00, S01, S11 = (a.new_zeros(B, J, J) for _ in range(3))
-    f0, f1, W0, W1 = (a.new_zeros(B, J) for _ in range(4))
-    Dp, zpp = a.new_zeros(B), a.new_zeros(B)
+    S00, S01, S11, W0, W1, f0, f1, Dp, zpp = initial_state(a, carry)
     logdet, clog, quad, cquad = (a.new_zeros(B) for _ in range(4))
     minD = torch.full((B,), math.inf, dtype=a.dtype, device=a.device)
     tabs = ([], [], [], [], [], [])
@@ -308,10 +387,13 @@ def fwd_aug_plain(a, b, c, d, t, y, sigma2, dt=None, kc: int = KC, n_valid=None)
         quad = t3
         minD = torch.minimum(minD, _masked(live, n, Dn, inf))
 
+    residuals = tuple(torch.stack(lst, dim=1) for lst in tabs) + (torch.stack(ckpts, dim=1),)
+    if carry is not None:
+        return (torch.stack([logdet, quad, minD], dim=1),
+                pack_carry(S00, S01, S11, W0, W1, f0, f1, Dp, zpp), residuals)
     ll = -0.5 * (logdet + quad + log2pi_terms(N, n_valid, a.dtype))
     ok = (minD > 0) & torch.isfinite(ll)
     ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
-    residuals = tuple(torch.stack(lst, dim=1) for lst in tabs) + (torch.stack(ckpts, dim=1),)
     return ll, residuals
 
 
@@ -333,7 +415,7 @@ def _fold_time(tb, dtb, per_lane):
 
 
 def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
-              kc: int = KC, n_valid=None):
+              kc: int = KC, n_valid=None, carry=None):
     """Plain PyTorch version of K4: cotangents (ā, b̄, c̄, d̄ (B, J), t̄ (N,)
     or (B, N) for per-lane t, ȳ, σ̄² (B, N)) of the log-likelihoods under
     the cotangent ``g`` (B,).
@@ -342,15 +424,31 @@ def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
     sweep then reverses every forward statement, carrying Mbar (the
     cotangent of T_{m+1}) and cpre (that of pre_{m+1}). Only steps below
     ``n_valid`` seed the loss. Chains with ``g == 0`` get exact zeros.
+
+    With an adjoint ``carry`` (B, 3 J^2 + 2 J), the cotangents of T and
+    pre at the next block's first step, this is K4's carry entry (``dt``
+    (N,) as for :func:`fwd_aug_plain`'s): Mbar and cpre start from it,
+    and the result is ``(ā, b̄, c̄, d̄, t partials (N,), dt partials (N,),
+    ȳ, σ̄², adjoint carry out)``, the per-step time partials summed over
+    the chains and not folded (the spacing of a block's first step
+    reaches back into the block before).
     """
     W0t, W1t, P0t, P1t, Dt, ZPt, Tcp = residuals
     B, J = a.shape
     N = t.shape[-1]
-    lanes_t, lanes_dt, step_live = _lanes(t, dt, B, n_valid)
+    lanes_t, lanes_dt, step_live = (_lanes(t, dt, B, n_valid) if carry is None
+                                    else block_lanes(t, dt, B))
     live = g != 0
     g = torch.where(live, g, torch.zeros_like(g))
-    M00, M01, M11 = (a.new_zeros(B, J, J) for _ in range(3))
-    cp0, cp1 = a.new_zeros(B, J), a.new_zeros(B, J)
+    if carry is None:
+        M00, M01, M11 = (a.new_zeros(B, J, J) for _ in range(3))
+        cp0, cp1 = a.new_zeros(B, J), a.new_zeros(B, J)
+    else:  # M00 and M11 enter only through their symmetric parts
+        JJ = J * J
+        M00, M01, M11 = (carry[:, k * JJ:(k + 1) * JJ].reshape(B, J, J).clone()
+                         for k in range(3))
+        M00, M11 = 0.5 * M00, 0.5 * M11
+        cp0, cp1 = carry[:, 3 * JJ:3 * JJ + J].clone(), carry[:, 3 * JJ + J:].clone()
     abar, bbar, cbar, dbar = (a.new_zeros(B, J) for _ in range(4))
     sumabar = a.new_zeros(B)
     ybar, s2bar, tb, dtb = (a.new_zeros(B, N) for _ in range(4))
@@ -455,6 +553,11 @@ def bwd_plain(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None,
     outs = [torch.where(live[:, None], x, zero)
             for x in (abar, bbar, cbar, dbar, ybar, s2bar, tb, dtb)]
     abar, bbar, cbar, dbar, ybar, s2bar, tb, dtb = outs
+    if carry is not None:
+        aout = torch.cat([(M00 + tr(M00)).reshape(B, -1), M01.reshape(B, -1),
+                          (M11 + tr(M11)).reshape(B, -1), cp0, cp1], dim=1)
+        aout = torch.where(live[:, None], aout, zero)
+        return abar, bbar, cbar, dbar, tb.sum(0), dtb.sum(0), ybar, s2bar, aout
     return abar, bbar, cbar, dbar, _fold_time(tb, dtb, t.dim() == 2), ybar, s2bar
 
 
@@ -483,6 +586,25 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
+def _carry_lib() -> ctypes.CDLL:
+    """The warp-per-chain K3 and K4 carry entries' library
+    (``csrc/celerite_adjoint_carry.cu``: ``celerite_adjoint.cu``'s
+    kernels, built apart so that nvcc compiles both at once)."""
+    global _CARRY_LIB
+    if _CARRY_LIB is None:
+        lib = _build.load("celerite_adjoint_carry")
+        for fn, nptr, nint in ((lib.celerite_fwd_aug_carry_f32, 18, 4),
+                               (lib.celerite_fwd_aug_carry_f64, 18, 4),
+                               (lib.celerite_bwd_carry_f32, 24, 6),
+                               (lib.celerite_bwd_carry_f64, 24, 6)):
+            fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.celerite_adjoint_error_string.argtypes = [ctypes.c_int]
+        lib.celerite_adjoint_error_string.restype = ctypes.c_char_p
+        _CARRY_LIB = lib
+    return _CARRY_LIB
+
+
 def _wide_lib() -> ctypes.CDLL:
     """The wide kernels' library (``csrc/celerite_wide.cu``): K1, K2, K0,
     K3 and K4 past ``NARROW_TERMS`` terms."""
@@ -493,7 +615,9 @@ def _wide_lib() -> ctypes.CDLL:
         # one more pointer, the int32 n_valid
         for name, nptr, nint in (("fwd", 10, 3), ("fwd_multi", 11, 3), ("tables", 8, 3),
                                  ("fwd_aug", 17, 4), ("fwd_aug_multi", 18, 4),
-                                 ("bwd", 24, 5), ("bwd_multi", 25, 5)):
+                                 ("bwd", 24, 5), ("bwd_multi", 25, 5),
+                                 ("fwd_carry", 12, 3), ("fwd_aug_carry", 19, 4),
+                                 ("bwd_carry", 26, 5)):
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"celerite_wide_{name}_{dt}")
                 fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [ctypes.c_void_p]
@@ -649,3 +773,131 @@ def bwd(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None, kc: int = KC
     if a.is_cuda:
         return _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid)
     return bwd_plain(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid)
+
+
+# ---------------------------------------------------------------------------
+# the carry entries: one block of a series split along time
+# ---------------------------------------------------------------------------
+
+def check_carry(a, b, c, d, t, y, sigma2, dt, carry, width):
+    """Raise ``ValueError`` on what a carry entry does not take (as
+    :func:`check_inputs`, with a shared t (N,), the spacings ``dt`` (N,)
+    of every step and a ``carry`` (B, width)); return dt in the working
+    dtype."""
+    if t.dim() != 1:
+        raise ValueError(f"a carry entry takes a shared grid t (N,), got {tuple(t.shape)}")
+    check_inputs(a, b, c, d, t, y, sigma2, None)
+    B, N = a.shape[0], t.shape[0]
+    if dt is None:
+        raise ValueError("a carry entry needs dt (N,): every step's spacing, the boundary's first")
+    dt = torch.as_tensor(dt, device=a.device).to(a.dtype)
+    if tuple(dt.shape) != (N,):
+        raise ValueError(f"dt must be ({N},) with the boundary spacing first, got "
+                         f"{tuple(dt.shape)}")
+    if carry.device != a.device or carry.dtype != a.dtype or tuple(carry.shape) != (B, width):
+        raise ValueError(f"carry: expected {a.dtype} {(B, width)} on {a.device}, got "
+                         f"{carry.dtype} {tuple(carry.shape)} on {carry.device}")
+    return dt
+
+
+def _launch_fwd_aug_carry(a, b, c, d, t, y, sigma2, dt, carry, kc):
+    global FWD_AUG_CARRY_LAUNCHES, WIDE_FWD_AUG_CARRY_LAUNCHES
+    B, J = a.shape
+    dt = check_carry(a, b, c, d, t, y, sigma2, dt, carry, carry_width(J))
+    kc = _check_kc(kc)
+    N = t.shape[0]
+    new = lambda *s: torch.empty(*s, dtype=a.dtype, device=a.device)  # noqa: E731
+    parts, cout = new(B, 3), new(B, carry_width(J))
+    res = (new(B, N, J), new(B, N, J), new(B, N, J), new(B, N, J),
+           new(B, N), new(B, N), new(B, -(-N // kc), 3, J, J))
+    if B == 0 or N == 0:
+        return parts, carry.clone(), res
+    args = [x.contiguous() for x in (a, b, c, d, t, dt, y, sigma2)]
+    args += [*res, carry.contiguous(), cout, parts]
+    wide = J > NARROW_TERMS
+    if wide:
+        lib, name = _wide_lib(), "celerite_wide_fwd_aug_carry"
+        errors = lib.celerite_wide_error_string
+        args.append(_scratch(B, wide_fwd_scratch(J, a.dtype), a))
+    else:
+        lib, name = _carry_lib(), "celerite_fwd_aug_carry"
+        errors = lib.celerite_adjoint_error_string
+    _call(_entry(lib, name, a.dtype, False), errors, name, a.device, args, (B, J, N, kc))
+    if wide:
+        WIDE_FWD_AUG_CARRY_LAUNCHES += 1
+    else:
+        FWD_AUG_CARRY_LAUNCHES += 1
+    return parts, cout, res
+
+
+def _launch_bwd_carry(a, b, c, d, t, y, sigma2, residuals, g, dt, carry, kc):
+    global BWD_CARRY_LAUNCHES, WIDE_BWD_CARRY_LAUNCHES
+    B, J = a.shape
+    dt = check_carry(a, b, c, d, t, y, sigma2, dt, carry, adjoint_width(J))
+    kc = _check_kc(kc)
+    N = t.shape[0]
+    shapes = [(B, N, J)] * 4 + [(B, N)] * 2 + [(B, -(-N // kc), 3, J, J)]
+    if len(residuals) != 7:
+        raise ValueError(f"residuals: expected 7 tables, got {len(residuals)}")
+    for i, (x, shape) in enumerate(zip(residuals, shapes)):
+        if x.device != a.device or x.dtype != a.dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"residual table {i}: expected {a.dtype} {shape} on {a.device}, "
+                f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    g = torch.as_tensor(g, device=a.device).to(a.dtype)
+    if tuple(g.shape) != (B,):
+        raise ValueError(f"g must be ({B},), got {tuple(g.shape)}")
+    new = lambda *s: torch.empty(*s, dtype=a.dtype, device=a.device)  # noqa: E731
+    coefs = [new(B, J) for _ in range(4)]
+    rows = [new(B, N) for _ in range(4)]  # ybar, s2bar, t partial, dt partial
+    aout = new(B, adjoint_width(J))
+    if B == 0 or N == 0:
+        return (*(x.zero_() for x in coefs), a.new_zeros(N), a.new_zeros(N),
+                rows[0].zero_(), rows[1].zero_(), carry.clone())
+    args = [x.contiguous() for x in (a, b, c, d, t, dt, g)]
+    args += [*(x.contiguous() for x in residuals), *coefs, *rows, carry.contiguous(), aout]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    if J > NARROW_TERMS:
+        ks, _, scr, chunk = wide_bwd_shape(J, kc, a.dtype, B, sms)
+        args += [_scratch(B, scr, a), _scratch(B, chunk, a)]
+        lib, name, ints = _wide_lib(), "celerite_wide_bwd_carry", (B, J, N, kc, ks)
+        errors = lib.celerite_wide_error_string
+    else:
+        cpb, ks, _ = bwd_launch_shape(a.dtype, J, kc, B, sms)
+        lib, name, ints = _carry_lib(), "celerite_bwd_carry", (B, J, N, kc, ks, cpb)
+        errors = lib.celerite_adjoint_error_string
+    _call(_entry(lib, name, a.dtype, False), errors, name, a.device, args, ints)
+    if J > NARROW_TERMS:
+        WIDE_BWD_CARRY_LAUNCHES += 1
+    else:
+        BWD_CARRY_LAUNCHES += 1
+    ybar, s2bar, tb, dtb = rows
+    return (*coefs, tb.sum(0), dtb.sum(0), ybar, s2bar, aout)
+
+
+def fwd_aug_carry(a, b, c, d, t, y, sigma2, dt, carry, kc: int = KC):
+    """K3's carry entry, one block of a split series: ``(partials (B, 3),
+    carry out, residuals)``. ``t`` (N,) the block's times, ``dt`` (N,)
+    every step's spacing with the boundary's first, ``carry`` (B,
+    3 J^2 + 4 J + 2) the state the previous block ended with
+    (:func:`neutral_carry` for the first). CUDA tensors launch the kernel,
+    its wide form past ``NARROW_TERMS`` terms (or raise); CPU tensors run
+    :func:`fwd_aug_plain` with the carry."""
+    if a.is_cuda:
+        return _launch_fwd_aug_carry(a, b, c, d, t, y, sigma2, dt, carry, kc)
+    dt = check_carry(a, b, c, d, t, y, sigma2, dt, carry, carry_width(a.shape[1]))
+    return fwd_aug_plain(a, b, c, d, t, y, sigma2, dt, kc, carry=carry)
+
+
+def bwd_carry(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt, carry, kc: int = KC):
+    """K4's carry entry, one block of a split series: ``(ā, b̄, c̄, d̄, t
+    partials (N,), dt partials (N,), ȳ, σ̄², adjoint carry out)`` under
+    the cotangent ``g`` (B,) of the whole series' log-likelihoods.
+    ``carry`` (B, 3 J^2 + 2 J) holds the cotangents of T and pre at the
+    next block's first step (zeros for the last block); ``residuals``,
+    ``dt`` and ``kc`` are those :func:`fwd_aug_carry` used. CUDA tensors
+    launch the kernel (or raise); CPU tensors run :func:`bwd_plain`."""
+    if a.is_cuda:
+        return _launch_bwd_carry(a, b, c, d, t, y, sigma2, residuals, g, dt, carry, kc)
+    dt = check_carry(a, b, c, d, t, y, sigma2, dt, carry, adjoint_width(a.shape[1]))
+    return bwd_plain(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, carry=carry)

@@ -57,7 +57,10 @@ def systematic_resample(generator: Optional[torch.Generator], log_weights, u=Non
     cumsum = torch.cumsum(w, 0)
     # force the final cumsum to 1 so searchsorted stays in range
     cumsum = cumsum / cumsum[-1]
-    return torch.searchsorted(cumsum, positions, right=False)
+    idx = torch.searchsorted(cumsum, positions, right=False)
+    # with no finite weight the cumsum is NaN: torch's searchsorted then
+    # gives N, out of range, where the JAX package's gives 0
+    return torch.where(torch.isnan(cumsum[-1]), torch.zeros_like(idx), idx)
 
 
 def _ess_fraction(log_w):

@@ -1047,3 +1047,137 @@ def test_wide_and_narrow_forms_agree_on_card(card):
     fin = torch.isfinite(k1)
     assert torch.equal(fin, torch.isfinite(out))
     assert float(((out[fin] - k1[fin]).abs() / k1[fin].abs()).max()) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the carry entries of K1, K3 and K4 (a block of a series split along time)
+# ---------------------------------------------------------------------------
+
+CARRY_J = [3, 20, 32, 40, 70]  # warp-per-chain and wide, J at and past 32
+
+
+def _carry_problem(J, dtype, card, N=300, seed=60):
+    """Inputs on the card, the spacings with a leading 0 (N,), a g (B,)
+    that is 0 on the non-PD lane 0."""
+    a, b, c, d, t, y, s2 = (torch.as_tensor(x, dtype=dtype, device=card)
+                            for x in _problem(37, J, N, seed + J))
+    dt = torch.diff(t)
+    dtg = torch.cat([dt.new_zeros(1), dt])
+    g = torch.linspace(0.5, 1.5, 37, dtype=dtype, device=card)
+    g[0] = 0.0
+    return (a, b, c, d, t, y, s2), dtg, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("J", CARRY_J)
+def test_carry_entries_match_plain_on_card(card, dtype, J):
+    """Each carry entry on the second block of a series (steps 100 to
+    232: not a whole number of 32-step tables or kc = 8 chunks), started
+    from the state after the first block and, for K4, from the adjoint
+    carry of the third: its partials, carry out, residual tables and
+    cotangents against its plain version's, float64 within 1e-9 relative;
+    float32 as chip_smoke.py's phase 6 gates it, each output within 3 x
+    the plain float32 loop's own error against the plain float64 loop on
+    the same inputs."""
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+
+    (a, b, c, d, t, y, s2), dtg, g = _carry_problem(J, dtype, card)
+    blocks = [slice(0, 100), slice(100, 233), slice(233, 300)]
+
+    def x(sl, xs=(a, b, c, d, t, y, s2, dtg)):
+        return (*xs[:4], xs[4][sl], xs[5][:, sl], xs[6][:, sl], xs[7][sl])
+
+    _, cin = cc._plain(*x(blocks[0]), None, carry=vjp.neutral_carry(37, J, a))
+    _, c2, _ = vjp.fwd_aug_plain(*x(blocks[1]), carry=cin)
+    _, _, r3 = vjp.fwd_aug_plain(*x(blocks[2]), carry=c2)
+    ain = vjp.bwd_plain(*x(blocks[2])[:7], r3, g, dtg[blocks[2]],
+                        carry=a.new_zeros(37, vjp.adjoint_width(J)))[-1]
+
+    def counts():
+        return (cc.CARRY_LAUNCHES + cc.WIDE_CARRY_LAUNCHES,
+                vjp.FWD_AUG_CARRY_LAUNCHES + vjp.WIDE_FWD_AUG_CARRY_LAUNCHES,
+                vjp.BWD_CARRY_LAUNCHES + vjp.WIDE_BWD_CARRY_LAUNCHES)
+
+    n1 = counts()
+    k1 = cc.loglike_carry(*x(blocks[1]), cin)
+    k3 = vjp.fwd_aug_carry(*x(blocks[1]), cin)
+    k4 = vjp.bwd_carry(*x(blocks[1])[:7], k3[2], g, dtg[blocks[1]], ain)
+    torch.cuda.synchronize()
+    assert tuple(m - n for m, n in zip(counts(), n1)) == (1, 1, 1)
+    assert bool((k4[-1][0] == 0).all()) and bool((k4[0][0] == 0).all())  # g = 0 on lane 0
+
+    def plain(xs, cin, ain, g):
+        p1 = cc._plain(*xs, None, carry=cin)
+        p3 = vjp.fwd_aug_plain(*xs, carry=cin)
+        return p1, p3, vjp.bwd_plain(*xs[:7], p3[2], g, xs[7], carry=ain)
+
+    def rows(o1, o3, o4):
+        """Chain rows, lane 0 (not positive definite) left out; the time
+        partials, summed over the chains, as one row each."""
+        out = [o1[0], o1[1], o3[0], o3[1], *o3[2][:6], *(z for z in o4 if z.dim() > 1)]
+        return [z[1:] for z in out] + [z[None] for z in o4[4:6]]
+
+    got = rows(k1, k3, k4)
+    same = rows(*plain(x(blocks[1]), cin, ain, g))
+    if dtype == torch.float64:
+        for k, p in zip(got, same):
+            assert _rel_rows(k, p) <= 1e-9
+        return
+    up = lambda z: z.double()  # noqa: E731
+    ref = rows(*plain(tuple(map(up, x(blocks[1]))), up(cin), up(ain), up(g)))
+    for k, q, r in zip(got, same, ref):
+        assert _rel_rows(k, r) <= max(3.0 * _rel_rows(q, r), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", CARRY_J)
+def test_carry_entries_chained_equal_one_launch_on_card(card, J):
+    """The series in three blocks (100, 133 and 67 steps), each carry
+    entry started from the carry the block before ended with, against one
+    launch of the entry without a carry: the value and every cotangent,
+    float64 within 1e-9 relative, the non-PD lane -inf with a zero
+    gradient."""
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+
+    (a, b, c, d, t, y, s2), dtg, g = _carry_problem(J, torch.float64, card, seed=70)
+    args = (a, b, c, d, t, y, s2)
+    dt = dtg[1:]
+    ll = batched_loglike(*args, dt)
+    ll3, res = vjp.fwd_aug(*args, dt=dt)
+    grads = vjp.bwd(*args, res, g, dt=dt)
+    blocks = [slice(0, 100), slice(100, 233), slice(233, 300)]
+    carry, c3 = vjp.neutral_carry(37, J, a), vjp.neutral_carry(37, J, a)
+    parts, parts3, saved = [], [], []
+    for sl in blocks:
+        xs = (a, b, c, d, t[sl], y[:, sl], s2[:, sl], dtg[sl])
+        p, carry = cc.loglike_carry(*xs, carry)
+        q, c3, r = vjp.fwd_aug_carry(*xs, c3)
+        parts.append(p)
+        parts3.append(q)
+        saved.append(r)
+    ain = a.new_zeros(37, vjp.adjoint_width(J))
+    outs = [None] * 3
+    for k in (2, 1, 0):
+        sl = blocks[k]
+        outs[k] = vjp.bwd_carry(a, b, c, d, t[sl], y[:, sl], s2[:, sl], saved[k], g, dtg[sl], ain)
+        ain = outs[k][-1]
+    torch.cuda.synchronize()
+
+    def value(ps):
+        v = -0.5 * (sum(p[:, 0] for p in ps) + sum(p[:, 1] for p in ps) + 300 * math.log(2 * math.pi))
+        ok = torch.stack([p[:, 2] for p in ps]).min(0).values > 0
+        return torch.where(ok, v, torch.full_like(v, -math.inf))
+
+    for v in (value(parts), value(parts3)):
+        assert torch.equal(torch.isneginf(v), torch.isneginf(ll)) and bool(torch.isneginf(v[0]))
+        assert float(((v - ll).abs() / ll.abs())[1:].max()) <= 1e-9
+    coefs = [sum(o[i] for o in outs) for i in range(4)]
+    tb, dtb = torch.cat([o[4] for o in outs]), torch.cat([o[5] for o in outs])
+    tbar = tb + dtb - torch.cat([dtb[1:], dtb.new_zeros(1)])
+    mine = (*coefs, tbar, torch.cat([o[6] for o in outs], 1), torch.cat([o[7] for o in outs], 1))
+    for k, r in zip(mine, grads):
+        if k.dim() == 1:
+            assert _rel_rows(k[None], r[None]) <= 1e-9
+        else:
+            assert _rel_rows(k[1:], r[1:]) <= 1e-9 and bool((k[0] == 0).all())

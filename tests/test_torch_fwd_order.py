@@ -12,7 +12,11 @@ e_n = ec_n o W_{n-1}:
     zp_n = y_n - h_n - zp_{n-1} g_n
     W_n  = (V_n - ec_n o (P_n + D_{n-1} g_n W_{n-1})) / D_n
 
-with one reciprocal of D_n shared by W_n and zp_n^2 / D_n. The plain
+with one reciprocal of D_n shared by W_n and zp_n^2 / D_n. K1's carry
+entry starts a block from a carried state (S, W, D, f, zp): its first
+step's look-ahead terms P_0 = S_in u_0, g_0 = u_0 . W_in and
+e_0 = ec_0 o W_in come from that state, and its first spacing is the one
+to the previous block's last point. The plain
 versions (``batched_loglike_plain``) keep the JAX package's order. This
 file transcribes the kernels' order step for step in PyTorch and holds it
 against the plain version and against the JAX package's fused Pallas
@@ -33,6 +37,7 @@ import torch
 from pioran_tpu.ops.pallas_celerite import batched_loglike_pallas_fused
 from pioran_tpu_torch import SingleBendingPowerLaw, approx, single_bending_model
 from pioran_tpu_torch.ops.celerite import exp_neg
+from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
 from pioran_tpu_torch.ops.cuda_celerite import batched_loglike_plain
 
 torch.set_num_threads(1)
@@ -44,17 +49,24 @@ SUBSET = os.path.join("simu_single", "simu_single_subset_time_series.txt")
 ILL_THETA = [0.97337, 3.68869, 0.00100, 0.18325, 0.66895, 1.45653]
 
 
-def reassociated(a, b, c, d, t, y, sigma2, dt=None):
+def reassociated(a, b, c, d, t, y, sigma2, dt=None, carry=None):
     """(B,) log-likelihoods in the kernels' step order; a, b, c, d (B, J),
-    t (N,), y and sigma2 (B, N), dt an optional (N-1,) host spacing."""
+    t (N,), y and sigma2 (B, N), dt an optional (N-1,) host spacing. With
+    a forward ``carry`` (the carry entry): dt (N,) holds every step's
+    spacing, the boundary's first, the loop starts from the carried
+    state, and the result is (partials (B, 3), carry out)."""
     B, J = a.shape
     N = t.shape[0]
-    spacing = torch.diff(t) if dt is None else torch.as_tensor(dt).to(a.dtype)
-    spacing = torch.cat([spacing.new_zeros(1), spacing])
     suma = torch.sum(a, dim=1)
-    S00, S01, S11 = (a.new_zeros(B, J, J) for _ in range(3))
-    W0, W1, f0, f1 = (a.new_zeros(B, J) for _ in range(4))
-    Dp, zpp = a.new_zeros(B), a.new_zeros(B)
+    if carry is None:
+        spacing = torch.diff(t) if dt is None else torch.as_tensor(dt).to(a.dtype)
+        spacing = torch.cat([spacing.new_zeros(1), spacing])
+        S00, S01, S11 = (a.new_zeros(B, J, J) for _ in range(3))
+        W0, W1, f0, f1 = (a.new_zeros(B, J) for _ in range(4))
+        Dp, zpp = a.new_zeros(B), a.new_zeros(B)
+    else:
+        spacing = torch.as_tensor(dt).to(a.dtype)
+        S00, S01, S11, W0, W1, f0, f1, Dp, zpp = vjp.carry_state(carry, J)
     logdet, clog, quad, cquad = (a.new_zeros(B) for _ in range(4))
     minD = torch.full((B,), math.inf, dtype=a.dtype)
 
@@ -94,6 +106,9 @@ def reassociated(a, b, c, d, t, y, sigma2, dt=None):
         logdet, clog = kahan(logdet, clog, torch.log(torch.abs(Dn)))
         quad, cquad = kahan(quad, cquad, zpn * zpn * r)
         minD = torch.minimum(minD, Dn)
+    if carry is not None:
+        return (torch.stack([logdet, quad, minD], dim=1),
+                vjp.pack_carry(S00, S01, S11, W0, W1, f0, f1, Dp, zpp))
     ll = -0.5 * (logdet + quad + N * math.log(2.0 * math.pi))
     ok = (minD > 0) & torch.isfinite(ll)
     return torch.where(ok, ll, torch.full_like(ll, -math.inf))
@@ -199,3 +214,39 @@ def test_order_at_the_ill_conditioned_point():
         *[jnp.asarray(x, dtype=jnp.float32) for x in inputs],
         dt=jnp.asarray(dt, dtype=jnp.float32), chunk=64, interpret=True))
     assert np.isneginf(ours).all() and np.isneginf(plain).all() and np.isneginf(pallas).all()
+
+
+@pytest.mark.parametrize("J", [3, 20, 32])
+def test_order_with_a_carry_at_block_boundaries(J):
+    """The kernels' order started from a carried state at 3 block
+    boundaries (blocks of 24 steps, not a whole number of the kernels'
+    32-step tables): the chained value equals one pass in that order up to
+    the partial sums' order (1e-12 relative), and the chained values and
+    every carry out agree with the plain carry version's (1e-9 relative,
+    the order's rounding), float64; lane 0 is -inf in all three."""
+    a, b, c, d, t, y, s2 = (torch.as_tensor(x) for x in _synthetic(5, J, 96, seed=50 + J))
+    dt = torch.diff(t)
+    dtg = torch.cat([dt.new_zeros(1), dt])
+    one = reassociated(a, b, c, d, t, y, s2, dt)
+    K = 24
+    ours = plain = vjp.neutral_carry(5, J, a)
+    parts_o, parts_p = [], []
+    for k in range(4):
+        sl = slice(k * K, (k + 1) * K)
+        xs = (a, b, c, d, t[sl], y[:, sl], s2[:, sl], dtg[sl])
+        po, ours = reassociated(*xs, carry=ours)
+        pp, plain = cc.loglike_carry(*xs, plain)
+        parts_o.append(po)
+        parts_p.append(pp)
+        assert float(((ours - plain).norm(dim=1) / plain.norm(dim=1))[1:].max()) <= 1e-9
+
+    def ll(parts):
+        P = sum(parts)
+        minD = torch.stack([p[:, 2] for p in parts]).min(0).values
+        v = -0.5 * (P[:, 0] + P[:, 1] + 96 * math.log(2.0 * math.pi))
+        return torch.where(minD > 0, v, torch.full_like(v, -math.inf))
+
+    lo, lp = ll(parts_o), ll(parts_p)
+    assert bool(torch.isneginf(lo[0]) & torch.isneginf(lp[0]) & torch.isneginf(one[0]))
+    assert float(((lo - one).abs() / one.abs())[1:].max()) <= 1e-12
+    assert float(((lo - lp).abs() / lp.abs())[1:].max()) <= 1e-9

@@ -44,5 +44,5 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "pioran_tpu_torch.utils.subset", "pioran_tpu_torch.utils.samples",
                  "pioran_tpu_torch.inference", "pioran_tpu_torch.ops.cuda_celerite",
                  "pioran_tpu_torch.checkpoint", "pioran_tpu_torch.parallel.mesh",
-                 "pioran_tpu_torch.parallel.sharded"):
+                 "pioran_tpu_torch.parallel.sharded", "pioran_tpu_torch.parallel.seq_scan"):
         assert name in res["modules"], name

@@ -84,6 +84,19 @@ def test_systematic_resample_matches_jax_given_its_uniform():
     assert np.array_equal(out.numpy(), ref)
 
 
+def test_resampling_without_a_finite_weight_picks_what_jax_picks():
+    """Every log weight -inf (every particle's log-likelihood -inf): the
+    weights are NaN, and the port's indices pick the particles the JAX
+    package's pick, not an index out of range."""
+    key = jax.random.PRNGKey(4)
+    log_w = np.full(16, -np.inf)
+    parts = jnp.arange(16.0)[:, None]
+    ref = np.asarray(parts[jsmc.systematic_resample(key, jnp.asarray(log_w))][:, 0])
+    u = torch.tensor(float(jax.random.uniform(key, (), dtype=jnp.float64)), dtype=torch.float64)
+    out = tsmc.systematic_resample(None, torch.as_tensor(log_w), u=u)
+    assert np.array_equal(torch.arange(16.0)[out].numpy(), ref)
+
+
 # ---------------------------------------------------------------------------
 # the analytic targets of tests/test_samplers.py, with its gates
 # ---------------------------------------------------------------------------
