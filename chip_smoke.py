@@ -230,6 +230,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def once_ms(fn) -> float:
+    """Milliseconds of one run of ``fn()``, by CUDA events, with no warm-up
+    (for a plain loop that has already run at the same width)."""
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
 def load_curve(dirname, fname):
     """A committed light curve (t, y, yerr columns) and its #mean: header."""
     path = os.path.join(DATA, dirname, fname)
@@ -369,25 +381,29 @@ def phase_build():
 
 
 def ptxas_summary(log: str) -> str:
-    """'kernel<type,JP,grid> regs spill stores/loads' for each entry
-    function in nvcc's -Xptxas -v output (grid: shared or per-lane t;
-    tables for K0); the wide kernels as wide_fwd<type,grid[,aug]> and
-    wide_bwd<type,grid>."""
+    """'kernel<type,JP,grid[,carry]> regs spill stores/loads' for each
+    entry function in nvcc's -Xptxas -v output (grid: shared or per-lane
+    t; tables for K0; carry: the carry entry); the wide kernels as
+    wide_fwd<type,grid[,aug][,carry]> and wide_bwd<type,grid[,carry]>."""
     out, cur, spill = [], None, None
     for ln in log.splitlines():
         m = re.search(r"(celerite_fwd_kernel|fwd_aug_kernel|bwd_kernel|celerite_tables_kernel)"
-                      r"I([fd])Li(\d+)E(?:Lb([01])E)?", ln)
-        w = re.search(r"wide_(fwd|bwd)_kernelI([fd])(?:Li(\d)E)?Lb([01])E", ln)
+                      r"I([fd])Li(\d+)E((?:Lb[01]E)*)", ln)
+        w = re.search(r"wide_(fwd|bwd)_kernelI([fd])(?:Li(\d)E)?((?:Lb[01]E)*)", ln)
         if "Compiling entry function" in ln and m:
-            grid = {"1": "per-lane", "0": "shared", None: "tables"}[m.group(4)]
+            flags = re.findall(r"Lb([01])E", m.group(4))
+            grid = "tables" if not flags else ("per-lane" if flags[0] == "1" else "shared")
+            grid += ",carry" if flags[1:] == ["1"] else ""
             cur, spill = f"{m.group(1)}<{m.group(2)},{m.group(3)},{grid}>", None
             continue
         if "Compiling entry function" in ln and w:
+            first, carry = (re.findall(r"Lb([01])E", w.group(4)) + ["0", "0"])[:2]
             if w.group(1) == "fwd":
                 grid = ("shared", "per-lane", "tables")[int(w.group(3))]
-                tag = grid + (",aug" if w.group(4) == "1" else "")
+                tag = grid + (",aug" if first == "1" else "")
             else:
-                tag = "per-lane" if w.group(4) == "1" else "shared"
+                tag = "per-lane" if first == "1" else "shared"
+            tag += ",carry" if carry == "1" else ""
             cur, spill = f"wide_{w.group(1)}<{w.group(2)},{tag}>", None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -2566,7 +2582,9 @@ def phase_wide(dev, datasets):
 # ---------------------------------------------------------------------------
 
 SEQ_N = 2**14            # 23a: a series split into SEQ_BLOCKS blocks, against one launch
-SEQ_SHORT_N = 2**9       # 23a: the same against the chained plain loops
+# 23a: the same against the chained plain loops, in blocks of 133 steps: no
+# whole number of K1's 32-step tables or of K3/K4's kc = 8 chunks
+SEQ_SHORT_N = 4 * 133
 SEQ_BLOCKS = 4
 SEQ_SHAPES = ((20, 64), (40, 16))  # (J, B): the warp-per-chain and the wide forms
 SEQ_BUILDER_N = 2**15    # 23b: the builders' simulated light curve
@@ -2713,9 +2731,10 @@ def phase_seq_carry(dev, seed):
     the ring's one-block helper, held against one launch of the entry
     without a carry at N = 2^14 (float64 1e-9; float32: the same step
     arithmetic, so only the order of the partial sums differs) and against
-    the chained plain loops at N = 2^10 (phase 2's and phase 6's gates);
-    then each carry entry's time against the entry without a carry on one
-    block. Returns {kernel: (max abs f32 err, ms, plain ms, cost)}."""
+    the chained plain loops at N = SEQ_SHORT_N (phase 2's and phase 6's
+    gates); then, on one block of the long series (K = 4096), each carry
+    entry's time against the entry without a carry and against its plain
+    version. Returns {kernel: (max abs f32 err, ms, plain ms, cost)}."""
     from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
 
     rows, times = {}, []
@@ -2767,7 +2786,7 @@ def phase_seq_carry(dev, seed):
                           f"chained rel err {e_k:.3e} > 3 x one launch's {e_q:.3e}")
                 errs_line.append(f"f32 chained/one-launch error ratio={ratio:.3f}")
             del res3, cres
-        # against the chained plain loops, N = 2^10, and the line's times
+        # against the chained plain loops, N = SEQ_SHORT_N
         a64, dt64 = seq_inputs(J, B, SEQ_SHORT_N, seed + 1, dev, torch.float64)
         a32 = [x.float() for x in a64]
         g = torch.linspace(0.5, 1.5, B, dtype=torch.float64, device=dev)
@@ -2808,30 +2827,9 @@ def phase_seq_carry(dev, seed):
                 worst[key] = max(worst[key], float((x.double() - q.double()).abs().max()))
             errs_line.append(f"vs plain f32 K1 abs={d1:.2e} K3/K4 worst kernel/plain "
                              f"ratio={ratio:.3f}")
-        # times: one block of the short series (the line), and of the long one
-        # against the same entry without a carry
-        K = SEQ_SHORT_N // SEQ_BLOCKS
-        a, b, c, d, t, y, s2 = a32
-        dtg = torch.cat([dt64.new_zeros(1), dt64]).float()
-        _, carry, _ = vjp.fwd_aug_carry(a, b, c, d, t[:K], y[:, :K], s2[:, :K], dtg[:K],
-                                        vjp.neutral_carry(B, J, a))
-        sl = slice(K, 2 * K)
-        blk = (a, b, c, d, t[sl], y[:, sl], s2[:, sl], dtg[sl], carry)
-        _, cout, res = vjp.fwd_aug_carry(*blk)
-        ain = torch.zeros(B, vjp.adjoint_width(J), device=dev)
-        gg = torch.isfinite(q3).float()
-        live = int(gg.sum())
-        fns = {names[0]: (lambda: cc.loglike_carry(*blk),  # noqa: B023
-                          lambda: cc._plain(*blk[:8], None, carry=carry)),  # noqa: B023
-               names[1]: (lambda: vjp.fwd_aug_carry(*blk),  # noqa: B023
-                          lambda: vjp.fwd_aug_plain(*blk[:8], carry=carry)),  # noqa: B023
-               names[2]: (lambda: vjp.bwd_carry(*blk[:7], res, gg, blk[7], ain),  # noqa: B023
-                          lambda: vjp.bwd_plain(*blk[:7], res, gg, blk[7],  # noqa: B023
-                                                carry=ain))}
-        for name, kind in zip(names, ("fwd", "fwd_aug", "bwd")):
-            ms = cuda_ms(fns[name][0], 20)
-            pms = cuda_ms(fns[name][1], 1)
-            rows[name] = (worst[name], ms, pms, carry_cost(kind, B, J, K, live))
+        # times on one block of the long series: each carry entry against
+        # the same entry without a carry (in turns: carry, none, none,
+        # carry) and against its plain version (once)
         args, dt64 = seq_inputs(J, B, SEQ_N, seed, dev, torch.float32)
         K = SEQ_N // SEQ_BLOCKS
         a, b, c, d, t, y, s2 = args
@@ -2844,18 +2842,27 @@ def phase_seq_carry(dev, seed):
         _, res0 = vjp.fwd_aug(*blk, dt=dt64[K:2 * K - 1])
         gg = torch.ones(B, device=dev)
         gg[0] = 0.0
+        live = int(gg.sum())
         ain = torch.zeros(B, vjp.adjoint_width(J), device=dev)
-        pairs = ((names[0], lambda: cc.loglike_carry(*blk, dtg[sl], carry),  # noqa: B023
-                  lambda: cc._launch(*blk, dt64[K:2 * K - 1])),  # noqa: B023
-                 (names[1], lambda: vjp.fwd_aug_carry(*blk, dtg[sl], carry),  # noqa: B023
-                  lambda: vjp.fwd_aug(*blk, dt=dt64[K:2 * K - 1])),  # noqa: B023
-                 (names[2], lambda: vjp.bwd_carry(*blk, res, gg, dtg[sl], ain),  # noqa: B023
-                  lambda: vjp.bwd(*blk, res0, gg, dt=dt64[K:2 * K - 1])))  # noqa: B023
-        for name, with_carry, without in pairs:  # in turns: carry, none, none, carry
+        dts = dtg[sl]
+        fns = (  # (carry entry, the entry without a carry, the plain version)
+            (lambda: cc.loglike_carry(*blk, dts, carry),  # noqa: B023
+             lambda: cc._launch(*blk, dt64[K:2 * K - 1]),  # noqa: B023
+             lambda: cc._plain(*blk, dts, None, carry=carry)),  # noqa: B023
+            (lambda: vjp.fwd_aug_carry(*blk, dts, carry),  # noqa: B023
+             lambda: vjp.fwd_aug(*blk, dt=dt64[K:2 * K - 1]),  # noqa: B023
+             lambda: vjp.fwd_aug_plain(*blk, dts, carry=carry)),  # noqa: B023
+            (lambda: vjp.bwd_carry(*blk, res, gg, dts, ain),  # noqa: B023
+             lambda: vjp.bwd(*blk, res0, gg, dt=dt64[K:2 * K - 1]),  # noqa: B023
+             lambda: vjp.bwd_plain(*blk, res, gg, dts, carry=ain)))  # noqa: B023
+        for name, kind, (with_carry, without, plain) in zip(names, ("fwd", "fwd_aug", "bwd"),
+                                                            fns):
             m1, m0 = cuda_ms(with_carry, 10), cuda_ms(without, 10)
             m0, m1 = (m0 + cuda_ms(without, 10)) / 2, (m1 + cuda_ms(with_carry, 10)) / 2
+            pms = once_ms(plain)
+            rows[name] = (worst[name], m1, pms, carry_cost(kind, B, J, K, live))
             times.append(f"{name} J={J} B={B} K={K}: carry_ms={m1:.4f} no_carry_ms={m0:.4f} "
-                         f"ratio={m1 / m0:.3f}")
+                         f"ratio={m1 / m0:.3f} plain_ms={pms:.2f}")
         del res, res0
         print(f"phase 23a carry entries J={J} B={B}: ok N={SEQ_N} in {SEQ_BLOCKS} blocks vs one "
               f"launch, N={SEQ_SHORT_N} vs the chained plain loops, lane 0 non-PD: "
@@ -2866,8 +2873,9 @@ def phase_seq_carry(dev, seed):
         print(f"phase 23c times f32 (one block, CUDA events; {smi}): {ln}")
     for name, (err, ms, pms, cost) in rows.items():
         bms, by = bound(*cost)
-        print(f"phase 23c {name} f32 block of {SEQ_SHORT_N // SEQ_BLOCKS} steps: ms={ms:.4f} "
-              f"plain_ms={pms:.2f} bound_ms={bms:.5f} ({by}) max_abs_err_f32={err:.3e}")
+        print(f"phase 23c {name} f32 block of {SEQ_N // SEQ_BLOCKS} steps: ms={ms:.4f} "
+              f"plain_ms={pms:.2f} bound_ms={bms:.5f} ({by}) max_abs_err_f32={err:.3e} "
+              f"(against the chained plain loops at N={SEQ_SHORT_N})")
     return rows
 
 
@@ -3150,8 +3158,8 @@ def main(argv=None) -> int:
     wide_launches = {**wide_smc_launches, **wide_path_launches}
     for name, (ms, plain_ms, cost) in wide_times.items():
         rows[name] = (wide_launches[name], wide_err[name], ms, plain_ms, cost)
-    # the carry entries on one block of phase 23a's short series; launches
-    # on phase 23b's seq_mesh builder path
+    # the carry entries on one block of phase 23a's long series (K = 4096);
+    # launches on phase 23b's seq_mesh builder path
     for name, (err, ms, plain_ms, cost) in seq_rows_.items():
         rows[name] = (seq_launches[name], err, ms, plain_ms, cost)
     kernels = []

@@ -32,6 +32,7 @@ the same arguments. A group of one rank sends nothing.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import List, Optional
 
 import torch
@@ -39,15 +40,18 @@ import torch.distributed as dist
 
 from ..ops.cuda_celerite import loglike_carry
 from ..ops.cuda_celerite_vjp import (
-    KC, adjoint_width, bwd_carry, carry_width, fwd_aug_carry, neutral_carry, spacings)
+    adjoint_width, bwd_carry, carry_width, fwd_aug_carry, neutral_carry, spacings)
 from .mesh import axis_group
 
 __all__ = ["logl_seq_sharded", "factor_solve_seq_sharded", "logl_seq_pipelined", "run_block"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
+# the groups whose communicator a collective of every rank has set up
+_READY = weakref.WeakSet()
 
-def run_block(a, b, c, d, t, y, sigma2, dt, carry, grad: bool, kc: int = KC):
+
+def run_block(a, b, c, d, t, y, sigma2, dt, carry, grad: bool):
     """One block of one micro-batch: ``(partials (B, 3), carry out,
     residuals or None)``. ``t`` (K,) the block's times, ``dt`` (K,) its
     spacings with the boundary's first, ``carry`` the state the block
@@ -55,7 +59,7 @@ def run_block(a, b, c, d, t, y, sigma2, dt, carry, grad: bool, kc: int = KC):
     ``grad`` runs K3's carry entry and keeps its residual tables for
     K4's; otherwise K1's, which writes none."""
     if grad:
-        return fwd_aug_carry(a, b, c, d, t, y, sigma2, dt, carry, kc)
+        return fwd_aug_carry(a, b, c, d, t, y, sigma2, dt, carry)
     parts, cout = loglike_carry(a, b, c, d, t, y, sigma2, dt, carry)
     return parts, cout, None
 
@@ -65,11 +69,12 @@ class _Ring:
 
     def __init__(self, mesh, axis_name: str, device):
         self.group, self.me, self.n = axis_group(mesh, axis_name)
-        if self.n > 1:
-            # a collective of every rank first: NCCL sets up a group's
-            # communicator at its first call, which must not be a
-            # point-to-point call between two of its ranks
+        if self.n > 1 and self.group not in _READY:
+            # a collective of every rank first, once a group: NCCL sets up
+            # a group's communicator at its first call, which must not be
+            # a point-to-point call between two of its ranks
             dist.all_reduce(torch.zeros(1, device=device), group=self.group)
+            _READY.add(self.group)
 
     def _peer(self, k: int) -> int:
         return dist.get_global_rank(self.group, k)

@@ -16,7 +16,8 @@ and the carry entries of K1, K3 and K4 it runs.
   of the conftest's 8 CPU devices, at B = 16, J = 3, N = 1024 and
   ``n_micro`` = 4: values within 1e-10 relative, gradient rows within
   1e-8, every rank's results bit-identical; the ``ValueError`` for an
-  indivisible N and B; ``dt=`` and the padding of B = 5;
+  indivisible N and B; ``dt=`` and the padding of B = 5; one all-reduce
+  a group, not one a call;
   ``single_bending_model(seq_mesh=)`` and ``carma_model(seq_mesh=)``
   against the JAX package's unsharded specs; ``ops.celerite.logl``'s
   routing; and a short SMC fit through ``run_inference`` on a
@@ -291,9 +292,14 @@ def _checks(mesh, out):
     from pioran_tpu_torch.ops import celerite as ocel
     from pioran_tpu_torch.parallel import seq_scan
 
+    import torch.distributed as dist
+
     f64 = lambda x: torch.as_tensor(x, dtype=torch.float64)  # noqa: E731
-    # the pipelined batch: values and the gradient of their sum
+    # the pipelined batch: values and the gradient of their sum; the
+    # all-reduces the ring makes over these calls counted
     a, b, c, d, t, Y, S2 = (f64(x) for x in _coefficients(PIPE["B"], PIPE["J"], PIPE["N"], 5))
+    reduces = []
+    _spy(dist, "all_reduce", reduces)
     leaves = [x.clone().requires_grad_(True) for x in (a, b, c, d, t, Y, S2)]
     ll = par.logl_seq_pipelined(*leaves, mesh, n_micro=PIPE["n_micro"])
     (ll.sum()).backward()
@@ -313,6 +319,7 @@ def _checks(mesh, out):
     out["one_ll"], out["one_grads"] = v.detach(), [x.grad for x in one]
     D, zp = par.factor_solve_seq_sharded(a[0], b[0], c[0], d[0], t, Y[0], S2[0], mesh)
     out["factor"] = (D, zp)
+    out["all_reduces"] = len(reduces)
 
     # ops.celerite.logl's routing: from SEQ_SHARD_MIN_N (8192) on by
     # default, from seq_min_n if given, and only where N divides
@@ -506,6 +513,14 @@ def test_every_rank_returns_the_same_bits(world, launched):
                     assert torch.equal(x, y), k
                 else:
                     assert x == y, k
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_the_ring_sets_up_its_group_once(world, launched):
+    """Five seq calls on one group make one all-reduce (the collective
+    that sets up the group's communicator), not one a call."""
+    for o in launched[0][(world, "checks")]:
+        assert o["all_reduces"] == 1
 
 
 @pytest.mark.parametrize("world", WORLDS)
