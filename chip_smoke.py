@@ -387,9 +387,10 @@ def ptxas_summary(log: str) -> str:
     wide_fwd<type,grid[,aug][,carry]> and wide_bwd<type,grid[,carry]>."""
     out, cur, spill = [], None, None
     for ln in log.splitlines():
-        m = re.search(r"(celerite_fwd_kernel|fwd_aug_kernel|bwd_kernel|celerite_tables_kernel)"
+        m = re.search(r"(?<![a-z_])(celerite_fwd_kernel|fwd_aug_kernel|bwd_kernel|"
+                      r"celerite_tables_kernel)"
                       r"I([fd])Li(\d+)E((?:Lb[01]E)*)", ln)
-        w = re.search(r"wide_(fwd|bwd)_kernelI([fd])(?:Li(\d)E)?((?:Lb[01]E)*)", ln)
+        w = re.search(r"(wide|split)_(fwd|bwd)_kernelI([fd])((?:Li\d+E)*)((?:Lb[01]E)*)", ln)
         if "Compiling entry function" in ln and m:
             flags = re.findall(r"Lb([01])E", m.group(4))
             grid = "tables" if not flags else ("per-lane" if flags[0] == "1" else "shared")
@@ -397,14 +398,16 @@ def ptxas_summary(log: str) -> str:
             cur, spill = f"{m.group(1)}<{m.group(2)},{m.group(3)},{grid}>", None
             continue
         if "Compiling entry function" in ln and w:
-            first, carry = (re.findall(r"Lb([01])E", w.group(4)) + ["0", "0"])[:2]
-            if w.group(1) == "fwd":
-                grid = ("shared", "per-lane", "tables")[int(w.group(3))]
+            ints = re.findall(r"Li(\d+)E", w.group(4))
+            first, carry = (re.findall(r"Lb([01])E", w.group(5)) + ["0", "0"])[:2]
+            cpt = f"{ints.pop(0)}," if w.group(1) == "split" else ""
+            if w.group(2) == "fwd":
+                grid = ("shared", "per-lane", "tables")[int(ints[0])]
                 tag = grid + (",aug" if first == "1" else "")
             else:
                 tag = "per-lane" if first == "1" else "shared"
             tag += ",carry" if carry == "1" else ""
-            cur, spill = f"wide_{w.group(1)}<{w.group(2)},{tag}>", None
+            cur, spill = f"{w.group(1)}_{w.group(2)}<{w.group(3)},{cpt}{tag}>", None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if cur and m and spill is None:
@@ -2230,6 +2233,15 @@ def wide_gates(tag, ks, qs, ps, names):
     return worst64, ratios, max_abs
 
 
+def wide_place(shape) -> str:
+    """Where a wide launch shape keeps the state and K4's T chunk."""
+    if shape.cpt:
+        return (f"registers (2 threads a row, {shape.cpt} columns a thread), K4 T slots in smem "
+                f"ks={shape.ks}")
+    return (f"a thread a row, K4 carry in {'scratch' if shape.carry_scratch else 'smem'}, "
+            f"chunk in {'scratch' if shape.chunk_scratch else 'smem'}")
+
+
 def hold_wide(spec64, nc, gen, dt, nv=None, model=None, batches=WIDE_BATCHES):
     """The wide K1 (K2 on ragged grids) and K3/K4 against their plain
     versions on the DRWCelerite flagship's coefficients at nc components,
@@ -2492,24 +2504,22 @@ def phase_wide(dev, datasets):
     launches)."""
     import pioran_tpu_torch.inference as tinf
     from pioran_tpu_torch.ops.cuda_celerite import batched_loglike_tables
-    from pioran_tpu_torch.ops.cuda_celerite_vjp import KC, wide_bwd_shape
+    from pioran_tpu_torch.ops.cuda_celerite_vjp import KC, wide_shape
     from pioran_tpu_torch.samplers.chees import batch_value_and_grad
 
     gen = torch.Generator(device=dev).manual_seed(23)
     spec64 = drw_spec(dev, torch.float64)
     dt64 = torch.as_tensor(np.diff(spec64.t.astype(np.float64)), device=dev)
     max_abs, summary = {}, []
-    # every width at B = 65 and 64; J = 40 also at the SMC fit's batch,
-    # where the wide K4 keeps its T chunk in the device scratch
+    # every width at B = 65 and 64; J = 40 also at the SMC fit's batch
     B_fit = SMC["num_particles"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for nc, batches in [(nc, WIDE_BATCHES) for nc in WIDE_NC] + [(WIDE_NC[0], (B_fit,))]:
         got = hold_wide(spec64, nc, gen, dt64, batches=batches)
         where = []
         for dtype in (torch.float64, torch.float32):
-            _, _, carry, chunk = wide_bwd_shape(2 * nc, KC, dtype, max(batches), sms)
-            where.append(f"{str(dtype)[6:]} K4 carry in {'scratch' if carry else 'smem'}, "
-                         f"chunk in {'scratch' if chunk else 'smem'}")
+            where.append(f"{str(dtype)[6:]} " + wide_place(
+                wide_shape(2 * nc, dtype, max(batches), KC, sms)))
         summary.append(f"J={2 * nc} B={batches} ({'; '.join(where)}): " + " ".join(
             f"{k} f64 {v[0]:.2e} f32 ratios {v[1][0]:.2f}/{v[1][1]:.2f}" for k, v in got.items()))
         for k, name in (("K1", "celerite_wide_fwd"), ("K3", "celerite_wide_fwd_aug"),

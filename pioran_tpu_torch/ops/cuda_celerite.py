@@ -37,8 +37,10 @@ kernel ``_kernel`` (K0, launched by ``batched_loglike_pallas``) becomes
   count its launches.
 
 Past ``NARROW_TERMS`` = 32 terms the kernels' wide forms run instead,
-from ``csrc/celerite_wide.cu``: one thread block a chain, a thread a row
-of the 2J x 2J state, up to ``MAX_TERMS`` terms.
+from ``csrc/celerite_wide.cu``: one thread block a chain, up to
+``MAX_TERMS`` terms, in the design ``cuda_celerite_vjp.wide_shape`` picks
+(two threads a row of the 2J x 2J state in registers, or one thread a
+row past the J where that no longer fits).
 
 ``LAUNCHES`` (K1), ``MULTI_LAUNCHES`` (K2) and ``TABLES_LAUNCHES`` (K0)
 count kernel launches, so a run can show that its main path went through
@@ -59,7 +61,7 @@ from .celerite import exp_neg
 from .cuda_celerite_vjp import (
     MAX_TERMS, NARROW_TERMS, _call, _lanes, _masked, _scratch, _wide_lib, block_lanes, bwd,
     carry_width, check_carry, check_inputs, fwd_aug, initial_state, live_steps, log2pi_terms,
-    pack_carry, wide_fwd_scratch)
+    pack_carry, wide_shape)
 
 __all__ = ["batched_loglike", "batched_loglike_plain", "batched_loglike_multi",
            "batched_loglike_multi_plain", "build_tables", "loglike_from_tables",
@@ -209,13 +211,14 @@ def _launch(a, b, c, d, t, y, sigma2, dt, n_valid=None):
         lib = _wide_lib()
         errors = lib.celerite_wide_error_string
         name = "celerite_wide_fwd_multi" if per_lane else "celerite_wide_fwd"
-        args.append(_scratch(B, wide_fwd_scratch(J, dtype), a))
+        shape = wide_shape(J, dtype, B)
+        args.append(_scratch(B, shape.fwd_scratch, a))
     else:
         lib = _lib()
         errors = lib.celerite_fwd_error_string
         name = "celerite_fwd_multi" if per_lane else "celerite_fwd"
     fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
-    _call(fn, errors, name, dev, args, (B, J, N))
+    _call(fn, errors, name, dev, args, (B, J, N, shape.cpt) if wide else (B, J, N))
     if wide and per_lane:
         WIDE_MULTI_LAUNCHES += 1
     elif wide:
@@ -243,12 +246,13 @@ def _launch_carry(a, b, c, d, t, y, sigma2, dt, carry):
     if wide:
         lib, name = _wide_lib(), "celerite_wide_fwd_carry"
         errors = lib.celerite_wide_error_string
-        args.append(_scratch(B, wide_fwd_scratch(J, a.dtype), a))
+        shape = wide_shape(J, a.dtype, B)
+        args.append(_scratch(B, shape.fwd_scratch, a))
     else:
         lib, name = _lib(), "celerite_fwd_carry"
         errors = lib.celerite_fwd_error_string
     fn = getattr(lib, name + ("_f32" if a.dtype == torch.float32 else "_f64"))
-    _call(fn, errors, name, a.device, args, (B, J, N))
+    _call(fn, errors, name, a.device, args, (B, J, N, shape.cpt) if wide else (B, J, N))
     if wide:
         WIDE_CARRY_LAUNCHES += 1
     else:
@@ -485,9 +489,10 @@ def _launch_tables(U, V, phi, y, sigma2, suma, shape=None):
             raise ValueError("a launch shape is the warp-per-chain K0's (J <= 32)")
         lib = _wide_lib()
         fn = lib.celerite_wide_tables_f32 if f32 else lib.celerite_wide_tables_f64
-        state = _scratch(B, wide_fwd_scratch(R // 2, U.dtype), U)
+        shape = wide_shape(R // 2, U.dtype, B)
+        state = _scratch(B, shape.fwd_scratch, U)
         _call(fn, lib.celerite_wide_error_string, "celerite_wide_tables", U.device,
-              [*args, out, state], (B, R // 2, N))
+              [*args, out, state], (B, R // 2, N, shape.cpt))
         WIDE_TABLES_LAUNCHES += 1
         return out
     lib = _tables_lib()

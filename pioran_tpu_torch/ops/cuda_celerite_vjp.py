@@ -28,10 +28,11 @@ CUDA tensors go to the kernels, or raise; CPU tensors go to
 
 Past ``NARROW_TERMS`` = 32 terms (one warp lane a term) the wrappers
 launch the wide forms of K3 and K4 in ``csrc/celerite_wide.cu`` instead,
-one thread block a chain and a thread a row of the 2J x 2J state, up to
-``MAX_TERMS``; that library also holds the wide K1, K2 and K0, which
-``ops/cuda_celerite.py`` launches. The residual tables are the same for
-both forms.
+one thread block a chain, up to ``MAX_TERMS``: two threads a row of the
+2J x 2J state, held in registers, up to J = 64, one thread a row past
+that (:func:`wide_shape`); that library
+also holds the wide K1, K2 and K0, which ``ops/cuda_celerite.py``
+launches. The residual tables are the same for both forms.
 
 Carry entries: one block of a series split along time, started from the
 state the previous block ended with, as the TPU kernels' segmented
@@ -56,9 +57,10 @@ segmentation: the tables live in device memory and one launch runs all N
 steps. K4 keeps the T blocks it recomputes for a chunk in shared memory,
 as the TPU kernel keeps them in VMEM; :func:`bwd_launch_shape` chooses
 the chains per block and the sub-chunk length that fit, and
-:func:`wide_bwd_shape` what the wide K4 keeps in shared memory and what
-in a device scratch. ``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count
-launches of the shared-grid kernels, ``FWD_AUG_MULTI_LAUNCHES`` and
+:func:`wide_shape` the wide kernels' design, K4's sub-chunk, and what
+they keep in shared memory and what in a device scratch.
+``FWD_AUG_LAUNCHES`` and ``BWD_LAUNCHES`` count launches of the
+shared-grid kernels, ``FWD_AUG_MULTI_LAUNCHES`` and
 ``BWD_MULTI_LAUNCHES`` those of the per-lane ones, and the ``WIDE_``
 counters those of the wide forms.
 """
@@ -67,7 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -76,7 +78,7 @@ from .celerite import exp_neg
 
 __all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "fwd_aug_carry", "bwd_carry",
            "carry_width", "adjoint_width", "neutral_carry", "residual_bytes",
-           "bwd_launch_shape", "wide_fwd_scratch", "wide_bwd_shape", "check_inputs", "spacings",
+           "bwd_launch_shape", "WideShape", "wide_cpt", "wide_shape", "check_inputs", "spacings",
            "live_steps", "log2pi_terms", "KC", "MAX_TERMS", "NARROW_TERMS"]
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -84,10 +86,13 @@ _LOG2PI = math.log(2.0 * math.pi)
 NARROW_TERMS = 32  # the warp-per-chain kernels: one warp lane per celerite term
 MAX_TERMS = 128    # the wide kernels: one thread per row of the 2J x 2J state
 KC = 8             # steps between T checkpoints
-WIDE_SUB = 8       # the wide K4: steps of a chunk's T held at once, at most
+WIDE_TAB = 8       # the wide kernels: steps a table of residual rows holds; K4's ks at most
+WIDE_CPT = (40, 64)  # the wide kernels' register design: columns a thread
 SMEM_BYTES = 232_448  # shared memory one block may use on the H100 (sm_90)
+SM_SMEM_BYTES = 233_472  # shared memory of an SM, 1 KB of it reserved a block
 H100_SMS = 132
 _WIDE_WARPS = 2 * MAX_TERMS // 32
+_SPLIT_WARPS = (4 * WIDE_CPT[-1] + 31) // 32  # the register design's largest block, in warps
 FWD_AUG_LAUNCHES = 0
 BWD_LAUNCHES = 0
 FWD_AUG_MULTI_LAUNCHES = 0
@@ -248,47 +253,94 @@ def bwd_launch_shape(dtype: torch.dtype, J: int, kc: int, B: int = 1,
     return cpb, ks, cpb * warp_bytes(ks)
 
 
-def wide_fwd_scratch(J: int, dtype: torch.dtype) -> int:
-    """Device scratch values a chain the wide forward kernels (K1, K2, K0
-    and K3 past 32 terms) need: 0 where the R x R state S (R = 2J) fits
-    the block's 232,448 bytes of shared memory beside the rows U, ec and W
-    and the reduction buffer, else R x R. The launch
-    (``fwd_smem_len`` in ``csrc/celerite_wide.cu``) lays shared memory out
-    by whether the scratch pointer is null, and refuses a layout that does
-    not fit.
+class WideShape(NamedTuple):
+    """The wide kernels' launch (J > ``NARROW_TERMS``), from
+    :func:`wide_shape`."""
+
+    lanes: int          # threads a row of the 2J x 2J state: 2 (registers) or 1
+    cpt: int            # columns a thread holds in registers (0: a row a thread)
+    threads: int        # threads a block
+    ks: int             # K4's sub-chunk: steps of a chunk's T held at once
+    chains: int         # K4's blocks (chains) an SM: shared memory, threads, registers
+    fwd_chains: int     # forward blocks an SM: shared memory, threads, registers
+    fwd_smem: int       # bytes of shared memory a forward block (K3's, the largest)
+    bwd_smem: int       # bytes of shared memory a K4 block
+    fwd_scratch: int    # device scratch values a chain: the forward state S
+    carry_scratch: int  # K4's carry G
+    chunk_scratch: int  # K4's T chunk
+
+
+def wide_cpt(J: int) -> int:
+    """Columns a thread holds in the register design of the wide kernels,
+    in both dtypes: the smallest of ``WIDE_CPT`` at least J, else 0 (one
+    thread a row). Past 64 a row segment no longer fits the registers of a
+    block of 4 J threads (at 100 columns float32 spilled 2 KB a thread)."""
+    for cpt in WIDE_CPT:
+        if J <= cpt:
+            return cpt
+    return 0
+
+
+def wide_shape(J: int, dtype: torch.dtype, B: int = 1, kc: int = KC,
+               sms: int = H100_SMS) -> WideShape:
+    """The wide kernels' launch shape for J terms in ``dtype``: one block a
+    chain, B chains, checkpoints every ``kc`` steps.
+
+    Register design (``cpt`` = :func:`wide_cpt` > 0): two threads a row of
+    the 2J x 2J state, each holding ``cpt`` >= J columns of it in registers
+    (S forward, K4's carry G), so nothing of the state is in shared or
+    device memory. The forward kernels' registers are sized for four
+    chains an SM in float32 at cpt = 40, two at 64 (float64: two, one);
+    K3 stages each checkpoint in shared memory (three J x (J + 1) blocks,
+    where kc >= 2) and stores it coalesced. K4's registers are sized for
+    one chain an SM (its column loads at once take about 250 registers;
+    bounded for two chains it spilled and ran slower), and it keeps a
+    thread's own T row segments for ks steps (ks x threads x cpt values)
+    in shared memory, the largest ks that fits (ks = 1 fits every J up to
+    64), so that fewer steps are replayed; ks <= min(kc, 8), and ks
+    divides 8 where kc > 8 (a sub-chunk lies in one 8-step window of
+    residual rows). Past
+    ``wide_cpt`` (J > 64: a row segment no longer fits the registers of a
+    block) the kernels keep one thread a row: S in shared memory where it
+    fits, else the scratch; G likewise; K4's T chunk (ks = min(kc, 8) steps
+    of three J x (J | 1) blocks) in shared memory beside G where that fits
+    and the B chains do not outnumber the ``sms`` SMs, else in the scratch.
+    ``csrc/celerite_wide.cu`` lays shared memory out the same way and
+    refuses a layout that does not fit.
     """
     item = torch.empty((), dtype=dtype).element_size()
     R = 2 * J
-    return 0 if item * (3 * R + 2 * _WIDE_WARPS + R * R) <= SMEM_BYTES else R * R
+    cpt = wide_cpt(J)
+    if cpt == 0:
+        fwd_state = item * (3 * R + 2 * _WIDE_WARPS + R * R) <= SMEM_BYTES
+        fwd_smem = item * (3 * R + 2 * _WIDE_WARPS + R * R * fwd_state)
+        ks = min(kc, WIDE_TAB)
+        rows = 7 * R + 3 * _WIDE_WARPS
+        carry, chunk = R * R, 3 * ks * J * (J | 1)
+        carry_smem = item * (rows + carry) <= SMEM_BYTES
+        chunk_smem = B <= sms and item * (rows + carry * carry_smem + chunk) <= SMEM_BYTES
+        smem = item * (rows + carry * carry_smem + chunk * chunk_smem)
+        nts = -(-R // 32) * 32
+        return WideShape(1, 0, nts, ks, min(SM_SMEM_BYTES // (smem + 1024), 2048 // nts),
+                         min(SM_SMEM_BYTES // (fwd_smem + 1024), 2048 // nts), fwd_smem, smem,
+                         0 if fwd_state else R * R, 0 if carry_smem else carry,
+                         0 if chunk_smem else chunk)
+    nts = -(-4 * J // 32) * 32
+    slot = nts * cpt
+    fixed = WIDE_TAB * (9 * cpt + 4) + 4 * cpt + 8 * _SPLIT_WARPS
+    fwd_smem = item * (2 * WIDE_TAB * 6 * cpt + 4 * cpt + 6 * WIDE_TAB + 4 * _SPLIT_WARPS
+                       + (3 * J * (J + 1) if kc >= 2 else 0))
 
+    def bwd_bytes(ks):
+        return item * (fixed + 8 * ks * cpt + ks * slot)
 
-def wide_bwd_shape(J: int, kc: int, dtype: torch.dtype, B: int = 1,
-                   sms: int = H100_SMS) -> Tuple[int, int, int, int]:
-    """The wide K4's launch: (sub-chunk length ks, shared-memory bytes a
-    block, carry scratch values a chain, chunk scratch values a chain).
-
-    One block a chain, a thread a row of the R x R carry G (R = 2J). A
-    chunk of kc steps is swept in sub-chunks of ks = min(kc, 8) steps,
-    whose T blocks (three J x (J | 1) blocks a step) are recomputed from
-    the checkpoint. Shared memory holds the rows and the reduction buffer;
-    G goes there too where it fits. The T chunk joins it where it fits
-    beside G and the B chains do not outnumber the ``sms`` SMs; what
-    shared memory does not hold lives in the scratch. At J = 40 with more
-    chains than SMs, blocks that keep the chunk in the scratch, several to
-    an SM, ran faster on the H100 (PERF.md); at other J the placement is
-    not tuned. The launch (``bwd_smem_len`` in ``csrc/celerite_wide.cu``)
-    lays shared memory out by which scratch pointers are null, and refuses
-    a layout that does not fit.
-    """
-    item = torch.empty((), dtype=dtype).element_size()
-    R = 2 * J
-    ks = min(kc, WIDE_SUB)
-    rows = 7 * R + 3 * _WIDE_WARPS
-    carry, chunk = R * R, 3 * ks * J * (J | 1)
-    carry_smem = item * (rows + carry) <= SMEM_BYTES
-    chunk_smem = B <= sms and item * (rows + carry * carry_smem + chunk) <= SMEM_BYTES
-    smem = item * (rows + carry * carry_smem + chunk * chunk_smem)
-    return ks, smem, 0 if carry_smem else carry, 0 if chunk_smem else chunk
+    def chains(nbytes):
+        return min(SM_SMEM_BYTES // (nbytes + 1024), 2048 // nts)
+    regs_chains = {(4, 40): 4, (4, 64): 2, (8, 40): 2}.get((item, cpt), 1)
+    fwd_chains = min(regs_chains, chains(fwd_smem))
+    ks = next(k for k in range(min(kc, WIDE_TAB), 0, -1)
+              if (kc <= WIDE_TAB or WIDE_TAB % k == 0) and bwd_bytes(k) <= SMEM_BYTES)
+    return WideShape(2, cpt, nts, ks, 1, fwd_chains, fwd_smem, bwd_bytes(ks), 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -611,13 +663,13 @@ def _wide_lib() -> ctypes.CDLL:
     global _WIDE_LIB
     if _WIDE_LIB is None:
         lib = _build.load("celerite_wide")
-        # pointers, then (B, J, N[, kc[, ks]]); the per-lane entries take
-        # one more pointer, the int32 n_valid
-        for name, nptr, nint in (("fwd", 10, 3), ("fwd_multi", 11, 3), ("tables", 8, 3),
-                                 ("fwd_aug", 17, 4), ("fwd_aug_multi", 18, 4),
-                                 ("bwd", 24, 5), ("bwd_multi", 25, 5),
-                                 ("fwd_carry", 12, 3), ("fwd_aug_carry", 19, 4),
-                                 ("bwd_carry", 26, 5)):
+        # pointers, then (B, J, N[, kc[, ks]], cpt); the per-lane entries
+        # take one more pointer, the int32 n_valid
+        for name, nptr, nint in (("fwd", 10, 4), ("fwd_multi", 11, 4), ("tables", 8, 4),
+                                 ("fwd_aug", 17, 5), ("fwd_aug_multi", 18, 5),
+                                 ("bwd", 24, 6), ("bwd_multi", 25, 6),
+                                 ("fwd_carry", 12, 4), ("fwd_aug_carry", 19, 5),
+                                 ("bwd_carry", 26, 6)):
             for dt in ("f32", "f64"):
                 fn = getattr(lib, f"celerite_wide_{name}_{dt}")
                 fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [ctypes.c_void_p]
@@ -679,14 +731,17 @@ def _launch_fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid):
     args += [n_valid] if per_lane else []
     args += [ll, *res]
     wide = J > NARROW_TERMS
+    ints = (B, J, N, kc)
     if wide:
         lib, name = _wide_lib(), "celerite_wide_fwd_aug"
         errors = lib.celerite_wide_error_string
-        args.append(_scratch(B, wide_fwd_scratch(J, a.dtype), a))
+        shape = wide_shape(J, a.dtype, B, kc)
+        args.append(_scratch(B, shape.fwd_scratch, a))
+        ints += (shape.cpt,)
     else:
         lib, name = _lib(), "celerite_fwd_aug"
         errors = lib.celerite_adjoint_error_string
-    _call(_entry(lib, name, a.dtype, per_lane), errors, name, a.device, args, (B, J, N, kc))
+    _call(_entry(lib, name, a.dtype, per_lane), errors, name, a.device, args, ints)
     if wide and per_lane:
         WIDE_FWD_AUG_MULTI_LAUNCHES += 1
     elif wide:
@@ -732,9 +787,10 @@ def _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid):
     args += [*(x.contiguous() for x in residuals), *coefs, *rows]
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     if J > NARROW_TERMS:
-        ks, _, carry, chunk = wide_bwd_shape(J, kc, a.dtype, B, sms)
-        args += [_scratch(B, carry, a), _scratch(B, chunk, a)]
-        lib, name, ints = _wide_lib(), "celerite_wide_bwd", (B, J, N, kc, ks)
+        shape = wide_shape(J, a.dtype, B, kc, sms)
+        args += [_scratch(B, shape.carry_scratch, a), _scratch(B, shape.chunk_scratch, a)]
+        lib, name = _wide_lib(), "celerite_wide_bwd"
+        ints = (B, J, N, kc, shape.ks, shape.cpt)
         errors = lib.celerite_wide_error_string
     else:
         cpb, ks, _ = bwd_launch_shape(a.dtype, J, kc, B, sms)
@@ -815,14 +871,17 @@ def _launch_fwd_aug_carry(a, b, c, d, t, y, sigma2, dt, carry, kc):
     args = [x.contiguous() for x in (a, b, c, d, t, dt, y, sigma2)]
     args += [*res, carry.contiguous(), cout, parts]
     wide = J > NARROW_TERMS
+    ints = (B, J, N, kc)
     if wide:
         lib, name = _wide_lib(), "celerite_wide_fwd_aug_carry"
         errors = lib.celerite_wide_error_string
-        args.append(_scratch(B, wide_fwd_scratch(J, a.dtype), a))
+        shape = wide_shape(J, a.dtype, B, kc)
+        args.append(_scratch(B, shape.fwd_scratch, a))
+        ints += (shape.cpt,)
     else:
         lib, name = _carry_lib(), "celerite_fwd_aug_carry"
         errors = lib.celerite_adjoint_error_string
-    _call(_entry(lib, name, a.dtype, False), errors, name, a.device, args, (B, J, N, kc))
+    _call(_entry(lib, name, a.dtype, False), errors, name, a.device, args, ints)
     if wide:
         WIDE_FWD_AUG_CARRY_LAUNCHES += 1
     else:
@@ -858,9 +917,10 @@ def _launch_bwd_carry(a, b, c, d, t, y, sigma2, residuals, g, dt, carry, kc):
     args += [*(x.contiguous() for x in residuals), *coefs, *rows, carry.contiguous(), aout]
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     if J > NARROW_TERMS:
-        ks, _, scr, chunk = wide_bwd_shape(J, kc, a.dtype, B, sms)
-        args += [_scratch(B, scr, a), _scratch(B, chunk, a)]
-        lib, name, ints = _wide_lib(), "celerite_wide_bwd_carry", (B, J, N, kc, ks)
+        shape = wide_shape(J, a.dtype, B, kc, sms)
+        args += [_scratch(B, shape.carry_scratch, a), _scratch(B, shape.chunk_scratch, a)]
+        lib, name = _wide_lib(), "celerite_wide_bwd_carry"
+        ints = (B, J, N, kc, shape.ks, shape.cpt)
         errors = lib.celerite_wide_error_string
     else:
         cpb, ks, _ = bwd_launch_shape(a.dtype, J, kc, B, sms)

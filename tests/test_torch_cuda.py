@@ -394,7 +394,7 @@ def _adjoint_vs_plain(card, dtype, np_args, DT, kc, nv=None, spread=False):
     J = args[0].shape[1]
     if J > vjp.NARROW_TERMS:
         sms = torch.cuda.get_device_properties(card).multi_processor_count
-        return vjp.wide_bwd_shape(J, kc, dtype, B, sms)
+        return vjp.wide_shape(J, dtype, B, kc, sms)
     return vjp.bwd_launch_shape(dtype, J, kc, B)
 
 
@@ -970,23 +970,67 @@ def test_wide_per_lane_adjoint_kernels_match_plain_on_card(card, dtype, J):
                          ids=["J40-B37", "J40-B140", "J128-B140"])
 def test_wide_adjoint_chunk_lengths_and_placements_on_card(card, dtype, kc, J, B):
     """The wide K4 with checkpoints every step, every 3, every 8 and once
-    (kc = N + 3: sub-chunks of 8 with the T recursion replayed from the
-    checkpoint), at each placement its launch shape picks: the carry G
-    and the T chunk in shared memory (J = 40, fewer chains than SMs,
-    where the chunk fits), the chunk in the device scratch (more chains
-    than SMs), and both there (J = 128: G alone exceeds shared
-    memory). Float64 at J = 40 keeps a chunk of 8 steps in the scratch
-    even below the SMs: it does not fit beside G."""
+    (kc = N + 3: sub-chunks that divide the 8-step window, with the T
+    recursion replayed from the checkpoint), at each placement its launch
+    shape picks: at J = 40 the register design (G in registers, the T
+    slots in shared memory, fewer or more chains than SMs alike), at
+    J = 128 one thread a row with G and the T chunk in the device scratch
+    (G alone exceeds shared memory)."""
     from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
 
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     np_args = _problem(B, J, 100, seed=kc)
-    ks, _, carry, chunk = _adjoint_vs_plain(card, dtype, np_args, None, kc, spread=True)
-    assert ks == min(kc, vjp.WIDE_SUB)
-    in_smem = {(40, 37): (True, dtype == torch.float32 or kc < vjp.WIDE_SUB),
-               (40, 140): (True, False), (128, 140): (False, False)}[J, B]
+    shape = _adjoint_vs_plain(card, dtype, np_args, None, kc, spread=True)
     assert (B > sms) == (B == 140)  # 37 chains below the card's SMs, 140 above
-    assert (carry == 0, chunk == 0) == in_smem
+    if J == 40:
+        assert (shape.lanes, shape.cpt) == (2, 40) and shape.chunk_scratch == 0
+        assert 1 <= shape.ks <= min(kc, vjp.WIDE_TAB)
+        assert kc <= vjp.WIDE_TAB or vjp.WIDE_TAB % shape.ks == 0
+    else:
+        assert (shape.cpt, shape.ks) == (0, min(kc, vjp.WIDE_TAB))
+        assert shape.carry_scratch and shape.chunk_scratch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wide_adjoint_at_the_fit_batch_on_card(card, dtype):
+    """The wide K3 and K4 at the DRWCelerite SMC fit's batch (B = 1024,
+    J = 40) against their plain versions, at the placement the launch
+    shape takes there: registers, the T slots in shared memory, and in
+    float32 all 8 steps of a chunk in K4's slots and two or more K3
+    chains an SM."""
+    np_args = _problem(1024, 40, 60, seed=11)
+    shape = _adjoint_vs_plain(card, dtype, np_args, None, 8, spread=True)
+    assert shape.cpt == 40 and shape.chunk_scratch == 0 and shape.carry_scratch == 0
+    if dtype == torch.float32:
+        assert shape.ks == 8 and shape.fwd_chains >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("J", [64, 65])
+def test_wide_design_switch_on_card(card, dtype, J):
+    """Both sides of the J where the wide kernels leave the register
+    design for one thread a row (past 64 terms): K1, K3 and K4 against
+    their plain versions."""
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+
+    np_args = _problem(37, J, 100, seed=J)
+    shape = _adjoint_vs_plain(card, dtype, np_args, None, 8, spread=True)
+    assert (shape.cpt > 0) == (J <= 64)
+    args = [torch.as_tensor(x, dtype=dtype, device=card) for x in np_args]
+    before = _wide_counts()
+    k = batched_loglike(*args)
+    _moved(before, fwd=1)
+    p = batched_loglike_plain(*args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(p)
+    assert torch.equal(torch.isfinite(k), fin) and not bool(fin[0]) and bool(fin.any())
+    err = (k[fin] - p[fin]).abs()
+    if dtype == torch.float64:
+        assert float((err / p[fin].abs()).max()) <= 1e-9
+    else:
+        assert float(err.max()) <= 5e-2
 
 
 @pytest.mark.cuda
@@ -1031,22 +1075,24 @@ def test_wide_backward_on_card_runs_the_kernels_only(card, monkeypatch):
 
 @pytest.mark.cuda
 def test_wide_and_narrow_forms_agree_on_card(card):
-    """At J = 32 the wide entries (called directly) equal the
-    warp-per-chain kernels within 1e-9 in float64: the same function."""
+    """At J = 32 the wide entries (called directly, in both designs)
+    equal the warp-per-chain kernels within 1e-9 in float64: the same
+    function."""
     from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
 
     a, b, c, d, t, y, s2 = (torch.as_tensor(x, device=card) for x in _problem(37, 32, 200, 8))
     k1 = batched_loglike(a, b, c, d, t, y, s2)
     lib = vjp._wide_lib()
-    out = torch.empty_like(k1)
-    args = [x.contiguous() for x in (a, b, c, d, t)] + [None, y, s2, out, None]
-    err = lib.celerite_wide_fwd_f64(*[None if x is None else x.data_ptr() for x in args],
-                                    37, 32, 200, torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    assert err == 0
     fin = torch.isfinite(k1)
-    assert torch.equal(fin, torch.isfinite(out))
-    assert float(((out[fin] - k1[fin]).abs() / k1[fin].abs()).max()) <= 1e-9
+    for cpt in (0, vjp.wide_cpt(32)):  # one thread a row; the register design
+        out = torch.empty_like(k1)
+        args = [x.contiguous() for x in (a, b, c, d, t)] + [None, y, s2, out, None]
+        err = lib.celerite_wide_fwd_f64(*[None if x is None else x.data_ptr() for x in args],
+                                        37, 32, 200, cpt, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(fin, torch.isfinite(out))
+        assert float(((out[fin] - k1[fin]).abs() / k1[fin].abs()).max()) <= 1e-9
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""The wide celerite kernels' times on the card, by where they keep their
-state: K1 and K3 (the forward sweep) and K4 (the reverse sweep) past 32
-terms, at J in {40, 64, 100}, B in {128, 1024}, N = 485, float32 and
-float64, K4 at each placement of its carry and T chunk that its launch
-shape can pick (both in shared memory, the chunk in the device scratch,
-both there) and that fits, beside the one ``wide_bwd_shape`` picks.
+"""The wide celerite kernels' times on the card (J > 32, ``csrc/celerite_wide.cu``):
+K1, K2 (ragged per-lane grids), K3 and K4 at J in {40, 64, 100}, B in
+{128, 512, 1024}, N = 485, float32 and float64.
 
-    python3 tools/wide_times.py
+    python3 tools/wide_times.py [ROOT]              # one tree
+    python3 tools/wide_times.py --old OLD_ROOT      # OLD_ROOT against this tree
+    python3 tools/wide_times.py --ks [ROOT]         # K4 at every sub-chunk that fits
+    [--terms 40 64] [--batches 512] [--dtypes float32] [--kernels K3 K4]  # a part of the grid
+
+ROOT (default: this checkout) is the tree whose ``pioran_tpu_torch`` is
+timed. ``--old`` times two trees on one card in turns, old, new, new, old
+(each a child process of this script, so each imports its own package;
+say, the parent commit unpacked into an ignored directory with ``git
+archive``), and prints each cell's mean of the two runs of each tree and
+their ratio new/old. ``--ks`` times the register design's K4 at each
+sub-chunk length ks that fits shared memory (the launch shape forced by
+standing in for ``wide_shape``), beside the one ``wide_shape`` picks.
 
 CUDA-event milliseconds a launch (after one warm-up), on random celerite
-kernels that are positive definite row by row. Imports torch and the port
-only; needs a CUDA device.
+kernels that are positive definite term by term. Prints the card's name
+and power limit first. Imports torch and the port only; needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import subprocess
 import sys
@@ -22,9 +34,9 @@ import sys
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-PLACES = ((True, True), (True, False), (False, False))  # (G, chunk in shared memory)
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N = 485
+JS, BS = (40, 64, 100), (128, 512, 1024)
 
 
 def cuda_ms(fn, reps):
@@ -39,8 +51,9 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def problem(B, J, N, dtype, dev, seed=1):
-    """a c > b d term by term; t sorted, y normal, sigma2 in [0.05, 0.15]."""
+def problem(B, J, dtype, dev, seed=1):
+    """a c > b d term by term; t sorted, y normal, sigma2 in [0.05, 0.15];
+    per-lane grids with lengths in [N / 2, N] for K2."""
     rng = np.random.default_rng(seed)
     a = rng.uniform(0.1, 1.0, (B, J))
     b = 0.1 * a * rng.uniform(0.0, 1.0, (B, J))
@@ -49,54 +62,118 @@ def problem(B, J, N, dtype, dev, seed=1):
     t = np.sort(rng.uniform(0, 100, N))
     y = rng.normal(size=(B, N))
     s2 = rng.uniform(0.05, 0.15, (B, N))
-    return [torch.as_tensor(x, dtype=dtype, device=dev) for x in (a, b, c, d, t, y, s2)]
+    T = np.sort(rng.uniform(0, 100, (B, N)), axis=1)
+    nv = rng.integers(N // 2, N + 1, B)
+    put = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    shared = [put(x) for x in (a, b, c, d, t, y, s2)]
+    T = put(T)
+    return shared, (T, torch.diff(T, dim=1), torch.as_tensor(nv, dtype=torch.int32, device=dev))
 
 
-def forced(place):
-    """A stand-in for ``wide_bwd_shape`` that keeps the carry G and the T
-    chunk where ``place`` says (the launch refuses what does not fit)."""
-    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+def smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
-    def shape(J, kc, dtype, B=1, sms=vjp.H100_SMS):
-        ks = min(kc, vjp.WIDE_SUB)
-        return ks, None, 0 if place[0] else 4 * J * J, 0 if place[1] else 3 * ks * J * (J | 1)
-    return shape
+
+def run_tree(root: str, tag: str, ks_mode: bool, grid) -> int:
+    """Time ``root``'s wide kernels on ``grid`` (J, B, dtype names,
+    kernels); one JSON line a cell."""
+    sys.path.insert(0, root)
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+
+    if not cc.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit(f"imported {cc.__file__}, not the tree at {root}")
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape_fn = getattr(vjp, "wide_shape", None)
+    js, bs, dtypes, kernels = grid
+    for dtype in (getattr(torch, name) for name in dtypes):
+        for J in js:
+            for B in bs:
+                args, (T, DT, nv) = problem(B, J, dtype, dev)
+                ragged = (*args[:4], T, *args[5:])
+                ll, res = vjp.fwd_aug(*args)
+                g = torch.isfinite(ll).to(dtype)
+                cell = dict(tree=tag, dtype=str(dtype)[6:], J=J, B=B)
+                if ks_mode:
+                    if shape_fn is None:
+                        raise SystemExit("--ks needs a tree with wide_shape")
+                    picked = shape_fn(J, dtype, B, vjp.KC, sms)
+                    if not picked.cpt:
+                        continue
+                    for ks in range(1, vjp.WIDE_TAB + 1):
+                        forced = picked._replace(ks=ks, chunk_scratch=0)
+                        vjp.wide_shape = lambda *_a, **_k: forced  # noqa: B023
+                        try:
+                            ms = cuda_ms(lambda: vjp.bwd(*args, res, g), 2)  # noqa: B023
+                        except RuntimeError:  # does not fit shared memory
+                            continue
+                        finally:
+                            vjp.wide_shape = shape_fn
+                        print(json.dumps(dict(cell, kernel="K4", ks=ks, ms=ms,
+                                              picked=ks == picked.ks and not picked.chunk_scratch)),
+                              flush=True)
+                    continue
+                runs = {
+                    "K1": (lambda: cc.batched_loglike(*args), 10),  # noqa: B023
+                    "K2": (lambda: cc._launch(*ragged, DT, nv), 10),  # noqa: B023
+                    "K3": (lambda: vjp.fwd_aug(*args), 5),  # noqa: B023
+                    "K4": (lambda: vjp.bwd(*args, res, g), 3),  # noqa: B023
+                }
+                for k in kernels:
+                    print(json.dumps(dict(cell, kernel=k, ms=cuda_ms(*runs[k]))), flush=True)
+                del args, ragged, res
+    return 0
+
+
+def compare(old_root: str, new_root: str, grid_args) -> int:
+    """Old, new, new, old in child processes; a table of means and ratios."""
+    runs = []
+    for tag, root in (("old", old_root), ("new", new_root), ("new", new_root), ("old", old_root)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tag", tag, root,
+                               *grid_args], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        runs += [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        print(f"{tag} tree done ({root})", flush=True)
+    cells = {}
+    for r in runs:
+        cells.setdefault((r["dtype"], r["J"], r["B"], r["kernel"]), {}).setdefault(
+            r["tree"], []).append(r["ms"])
+    worst = 0.0
+    for (dtype, J, B, k), v in sorted(cells.items()):
+        old, new = sum(v["old"]) / len(v["old"]), sum(v["new"]) / len(v["new"])
+        worst = max(worst, new / old)
+        print(f"{dtype} J={J} B={B} {k}: old_ms={old:.4f} ({', '.join(f'{x:.4f}' for x in v['old'])}) "
+              f"new_ms={new:.4f} ({', '.join(f'{x:.4f}' for x in v['new'])}) new/old={new / old:.4f}",
+              flush=True)
+    print(f"largest new/old over the cells: {worst:.4f}")
+    return 0
 
 
 def main() -> int:
-    from pioran_tpu_torch.config import require_cuda
-    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
-
-    dev = require_cuda()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    default = vjp.wide_bwd_shape
-    N = 485
-    for dtype in (torch.float32, torch.float64):
-        for J in (40, 64, 100):
-            for B in (128, 1024):
-                args = problem(B, J, N, dtype, dev)
-                k1 = cuda_ms(lambda: cc.batched_loglike(*args), 3)  # noqa: B023
-                k3 = cuda_ms(lambda: vjp.fwd_aug(*args), 2)  # noqa: B023
-                ll, res = vjp.fwd_aug(*args)
-                g = torch.isfinite(ll).to(dtype)
-                state = vjp.wide_fwd_scratch(J, dtype)
-                picked = vjp.wide_bwd_shape(J, vjp.KC, dtype, B, sms)
-                line = (f"{str(dtype)[6:]} J={J} B={B}: K1 {k1:.4f} K3 {k3:.4f} (state in "
-                        f"{'device memory' if state else 'shared memory'}) K4")
-                for place in PLACES:
-                    vjp.wide_bwd_shape = forced(place)
-                    try:
-                        ms = cuda_ms(lambda: vjp.bwd(*args, res, g), 2)  # noqa: B023
-                    except RuntimeError:  # does not fit shared memory
-                        continue
-                    finally:
-                        vjp.wide_bwd_shape = default
-                    mark = "*" if (not picked[2], not picked[3]) == place else ""
-                    line += f" {place}{mark} {ms:.4f}"
-                print(line + " (G, chunk in shared memory; * the default)", flush=True)
-    return 0
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("root", nargs="?", default=HERE, help="the tree to time")
+    ap.add_argument("--old", help="a second tree, timed against ROOT's in turns")
+    ap.add_argument("--ks", action="store_true", help="K4 at every sub-chunk that fits")
+    ap.add_argument("--terms", type=int, nargs="*", default=list(JS))
+    ap.add_argument("--batches", type=int, nargs="*", default=list(BS))
+    ap.add_argument("--dtypes", nargs="*", default=["float32", "float64"])
+    ap.add_argument("--kernels", nargs="*", default=["K1", "K2", "K3", "K4"])
+    ap.add_argument("--tag", default="tree", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    grid = (args.terms, args.batches, args.dtypes, args.kernels)
+    grid_args = ["--terms", *map(str, args.terms), "--batches", *map(str, args.batches),
+                 "--dtypes", *args.dtypes, "--kernels", *args.kernels]
+    if not torch.cuda.is_available():
+        print("wide_times: no CUDA device", file=sys.stderr)
+        return 1
+    if args.tag == "tree":
+        print(smi(), flush=True)
+    if args.old:
+        return compare(os.path.abspath(args.old), os.path.abspath(args.root), grid_args)
+    return run_tree(os.path.abspath(args.root), args.tag, args.ks, grid)
 
 
 if __name__ == "__main__":
