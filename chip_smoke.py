@@ -71,6 +71,17 @@ their times beside the entries without a carry (23c), and
 and DRWCelerite (J = 40) on a simulated light curve of 2^15 points,
 against the spec without ``seq_mesh`` (float64 1e-12), with the plain
 loops made to raise (23b). ``--seed`` seeds its series (numpy).
+Last, the example scripts and the Kalman filters (phase 24): the four
+model CLIs' ``main`` (``pioran_tpu_torch.examples.single_pl``,
+``double_pl``, ``single_pl_periodicity``, ``carma``; SMC with 1024
+particles and 12 MALA moves on the repository's light curves, each in a
+temporary directory), gated on their output layout, the JAX package's
+result keys, a finite evidence and posterior and K1/K3/K4 launches (24a);
+the parity CLI's SMC legs on the single and docs datasets, gated on
+every run's pass (24b); and ``ops.kalman``'s sequential and associative
+filters in float64 on the flagship light curve with the SHO (J = 20) and
+DRWCelerite (J = 40) bases against K1's value (1e-8 and 1e-6 relative)
+(24c).
 
 The phases run in this order: the build, the kernel checks and timings
 (2-4, 6-8, 10, 11, 13), SMC, the post-fit path, resume, the multi-device
@@ -78,9 +89,10 @@ code, the wide kernels' times and fit and the seq scan (14, 19-21, 22a,
 22b, 23); then
 phase 9, the ChEES fit, starts in a child process of this script
 (``--only-chees``) and runs on the same card while this process runs NS,
-the multi-dataset run, NUTS, the other builders and the wide kernels'
-checks (5, 12, 15-18, 22). The host-bound samplers then share the card
-and the host, so those phases' walls are not those of a run alone; with
+the multi-dataset run, NUTS, the other builders, the wide kernels'
+checks and the CLIs (5, 12, 15-18, 22, 24). The host-bound samplers
+then share the card and the host, so those phases' walls are not those
+of a run alone; with
 ``--serial`` (or on a card whose compute mode is not Default) phase 9 runs
 in this process at that point and every phase runs alone.
 Each phase prints its lines; any failure exits non-zero before the result
@@ -3005,6 +3017,151 @@ def phase_seq(dev, seed):
     return rows, launches
 
 
+# Phase 24: the example scripts and the Kalman filters
+CLI_SMC = ["--sampler", "smc", "--particles", "1024", "--moves", "12", "--seed", "7"]
+CLI_RUNS = (  # CLI module, light curve (repository path), its own options
+    ("single_pl", ("examples", "data", "simu.txt"), []),
+    ("double_pl", ("tests", "data", "simu_double", "simu_double_subset_time_series.txt"), []),
+    ("single_pl_periodicity",
+     ("tests", "data", "simu_periodic", "simu_periodic_rednoise_subset_time_series.txt"), []),
+    ("carma", ("examples", "data", "simu.txt"), ["--p", "2", "--q", "1"]),
+)
+# the keys of the JAX package's results.json for an SMC run
+# (tests/test_torch_builders_smc.py)
+SMC_RESULT_KEYS = {"paramnames", "sampler", "elapsed_s", "posterior", "maximum_likelihood",
+                   "logz", "num_temper_steps", "ncall"}
+PARITY_ARGS = ["--datasets", "single,docs", "--samplers", "smc"]
+KALMAN_RTOL = {"sequential": 1e-8, "associative": 1e-6}  # tests/test_kalman.py's
+
+
+def check_cli_run(name, root):
+    """Phase 24a's gates on one CLI's output under ``root``: one run
+    directory holding the cached subset file, chains/equal_weighted_post.txt
+    and info/results.json with the JAX package's SMC keys, a finite logZ and
+    a finite posterior."""
+    runs = os.listdir(os.path.join(root, "inference"))
+    check(len(runs) == 1, f"{name}: run directories {runs}")
+    out = os.path.join(root, "inference", runs[0])
+    subset = [f for f in os.listdir(out) if f.endswith("_subset_time_series.txt")]
+    check(len(subset) == 1, f"{name}: cached subset files {subset}")
+    for rel in (("chains", "equal_weighted_post.txt"), ("info", "results.json")):
+        check(os.path.isfile(os.path.join(out, *rel)), f"{name}: {rel} not written")
+    with open(os.path.join(out, "info", "results.json")) as fh:
+        res = json.load(fh)
+    check(set(res) == SMC_RESULT_KEYS, f"{name}: results.json keys {sorted(res)}")
+    post = np.loadtxt(os.path.join(out, "chains", "equal_weighted_post.txt"), skiprows=1)
+    check(math.isfinite(res["logz"]) and bool(np.all(np.isfinite(post)))
+          and bool(np.all(np.isfinite(res["posterior"]["mean"]))),
+          f"{name}: logZ {res['logz']} or the posterior not finite")
+    return runs[0], res
+
+
+def phase_cli(dev, smi):
+    """Phase 24a and 24b: the four model CLIs' ``main`` (SMC, 1024
+    particles, 12 MALA moves) and the parity CLI's SMC legs on single
+    and docs, each in a temporary directory, through K1 and K3/K4 on the
+    card. Returns the launches summed over the five calls."""
+    import contextlib
+    import importlib
+    import tempfile
+
+    total = {"celerite_fwd": 0, "celerite_fwd_aug": 0, "celerite_bwd": 0,
+             "celerite_tables": 0}
+    walls = {}
+    for name, data, extra in CLI_RUNS:
+        mod = importlib.import_module(f"pioran_tpu_torch.examples.{name}")
+        with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            rc = mod.main([os.path.join(HERE, *data), *extra, *CLI_SMC])
+            walls[name] = round(time.perf_counter() - t0, 2)
+            launches = launch_counts()
+            check(rc == 0, f"{name}.main returned {rc}")
+            run, res = check_cli_run(name, root)
+        print(f"phase 24a {name}: {run} logz={res['logz']:.4f} "
+              f"temper_steps={res['num_temper_steps']} wall_s={walls[name]} "
+              f"launches={launches}")
+        check(min(launches["celerite_fwd"], launches["celerite_fwd_aug"],
+                  launches["celerite_bwd"]) > 0, f"{name}: K1/K3/K4 not launched: {launches}")
+        total = add_counts(total, launches)
+
+    from pioran_tpu_torch.examples import parity
+
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "parity")
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = parity.main([*PARITY_ARGS, "--out", out])
+        walls["parity"] = round(time.perf_counter() - t0, 2)
+        launches = launch_counts()
+        with open(os.path.join(out, "summary.json")) as fh:
+            summary = json.load(fh)
+    for tag, entry in summary["runs"].items():
+        print(f"phase 24b parity {tag}: logz={entry['logz']:.4f} "
+              f"diff={entry['logz_diff']:+.4f} max_pull={entry['max_pull']:.4f} "
+              f"max_pull_referee={entry['max_pull_referee']:.4f} "
+              f"width_ratio_referee={entry['width_ratio_referee']} pass={entry['pass']}")
+    check(rc == 0 and sorted(summary["runs"]) == ["docs_smc", "single_smc"]
+          and all(e["pass"] for e in summary["runs"].values()),
+          f"parity CLI returned {rc}, runs {sorted(summary['runs'])}")
+    check(summary["platform"] == "gpu" and summary["dtype"] == "float32",
+          f"parity summary platform {summary['platform']} dtype {summary['dtype']}")
+    check(min(launches["celerite_fwd"], launches["celerite_fwd_aug"],
+              launches["celerite_bwd"]) > 0, f"parity: K1/K3/K4 not launched: {launches}")
+    total = add_counts(total, launches)
+    print(f"phase 24a/b CLIs: ok walls_s={walls} launches={launches} card: {smi}")
+    return total
+
+
+def phase_kalman(dev, smi):
+    """Phase 24c: ``ops.kalman``'s sequential and associative filters on
+    the card in float64 on the flagship light curve at FLAGSHIP_THETA,
+    with the SHO basis (J = 20) and the DRWCelerite basis (J = 40),
+    against K1's float64 value (the wide K1 at J = 40)."""
+    from pioran_tpu_torch.models.psd import SingleBendingPowerLaw
+    from pioran_tpu_torch.ops import cuda_celerite as cc, kalman
+    from pioran_tpu_torch.ops.approx import approx
+    from pioran_tpu_torch.ops.celerite import log_likelihood
+
+    sub, _, _ = load_subset()
+    f_min, f_max = 1.0 / (sub[-1, 0] - sub[0, 0]), 0.5 / np.min(np.diff(sub[:, 0]))
+    t, y, yerr = (torch.as_tensor(sub[:, i], dtype=torch.float64, device=dev)
+                  for i in range(3))
+    a1, a2, f1, var, nu, mu = (torch.tensor(x, dtype=torch.float64, device=dev)
+                               for x in FLAGSHIP_THETA)
+    yc = torch.log(y) - mu
+    s2 = nu * yerr**2 / y**2
+    for basis in ("SHO", "DRWCelerite"):
+        kern = approx(SingleBendingPowerLaw(a1, f1, a2), f_min, f_max, 20, var,
+                      basis_function=basis)
+        J = kern.a.shape[-1]
+        before = cc.LAUNCHES + cc.WIDE_LAUNCHES
+        ref = float(log_likelihood(kern, t, yc, s2))
+        check(cc.LAUNCHES + cc.WIDE_LAUNCHES == before + 1, f"{basis}: K1 did not launch")
+        for kind, sequential in (("sequential", True), ("associative", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ll = kalman.log_likelihood_kalman(kern, t, yc, s2, sequential=sequential)
+            check(ll.device == t.device, f"{basis} {kind}: result on {ll.device}")
+            ll = float(ll)
+            ms = (time.perf_counter() - t0) * 1e3
+            rel = abs(ll - ref) / abs(ref)
+            print(f"phase 24c kalman {basis} J={J} {kind}: {ll:.10f} K1 {ref:.10f} "
+                  f"rel={rel:.3e} (gate {KALMAN_RTOL[kind]:g}) wall_ms={ms:.1f}")
+            check(rel <= KALMAN_RTOL[kind], f"{basis} {kind} Kalman filter {ll} against K1 {ref}")
+    print(f"phase 24c kalman: ok card: {smi}")
+
+
+def phase_examples(dev, smi):
+    """Phase 24: 24a and 24b (the CLIs) and 24c (the Kalman filters);
+    returns 24a/b's launches."""
+    t0 = time.perf_counter()
+    launches = phase_cli(dev, smi)
+    phase_kalman(dev, smi)
+    print(f"phase 24: ok wall_s={time.perf_counter() - t0:.1f} card: {smi}")
+    return launches
+
+
 def card_shared() -> bool:
     """Whether a second process may use the card: its compute mode is
     Default (not exclusive to one process, not prohibited)."""
@@ -3082,7 +3239,7 @@ def main(argv=None) -> int:
         walls[name] = round(time.perf_counter() - t0, 1)
         return out
 
-    dev, _smi = timed("1", phase_build)
+    dev, smi = timed("1", phase_build)
     sub, xbar, va = load_subset()
     specs = [single_bending_model(sub[:, 0], sub[:, 1], sub[:, 2], xbar, va,
                                   device=dev, dtype=dt)
@@ -3116,13 +3273,15 @@ def main(argv=None) -> int:
         timed("17", phase_builders, dev)
         builder_launches = timed("18", phase_builders_smc, dev, args.out)
         wide_err, wide_path_launches = timed("22", phase_wide, dev, datasets)
+        cli_launches = timed("24", phase_examples, dev, smi)
         if child is not None:
             chees_launches, walls["9"] = finish_chees(*child)
     finally:
         if child is not None and child[0].poll() is None:
             child[0].kill()
             child[0].wait()
-    overlap = "" if child is None else " (9 in a child process beside 5, 12, 15-18 and 22)"
+    overlap = ("" if child is None
+               else " (9 in a child process beside 5, 12, 15-18, 22 and 24)")
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t_start:.1f} s; "
           f"phase wall_s{overlap} {walls}; "
           f"launches on the main paths: NS {{'celerite_fwd': {ns_launches}}}, "
@@ -3132,14 +3291,15 @@ def main(argv=None) -> int:
           f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}, "
           f"post-fit {post_launches}, resume {resume_launches}, multi-device {mesh_launches}, "
           f"DRWCelerite SMC (J=40) {wide_smc_launches}, J > 32 paths {wide_path_launches}, "
-          f"seq_mesh builder (23b) {seq_launches}")
+          f"seq_mesh builder (23b) {seq_launches}, CLIs (24a/b) {cli_launches}")
 
     # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
     # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS,
-    # the other builders' SMC, the post-fit path, the resumed and the sharded runs)
+    # the other builders' SMC, the post-fit path, the resumed and the sharded
+    # runs, the CLIs)
     t512 = timing[512]
     paths = (chees_launches, smc_launches, nuts_launches, builder_launches, post_launches,
-             resume_launches, mesh_launches)
+             resume_launches, mesh_launches, cli_launches)
     rows = {
         "celerite_fwd": (ns_launches + sum(p["celerite_fwd"] for p in paths), f32_err, k_ms,
                          p_ms, k1_cost(PHASE2_BATCHES[0])),

@@ -44,5 +44,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "pioran_tpu_torch.utils.subset", "pioran_tpu_torch.utils.samples",
                  "pioran_tpu_torch.inference", "pioran_tpu_torch.ops.cuda_celerite",
                  "pioran_tpu_torch.checkpoint", "pioran_tpu_torch.parallel.mesh",
-                 "pioran_tpu_torch.parallel.sharded", "pioran_tpu_torch.parallel.seq_scan"):
+                 "pioran_tpu_torch.parallel.sharded", "pioran_tpu_torch.parallel.seq_scan",
+                 "pioran_tpu_torch.ops.kalman", "pioran_tpu_torch.examples._common",
+                 "pioran_tpu_torch.examples.single_pl", "pioran_tpu_torch.examples.double_pl",
+                 "pioran_tpu_torch.examples.single_pl_periodicity",
+                 "pioran_tpu_torch.examples.carma", "pioran_tpu_torch.examples.parity"):
         assert name in res["modules"], name
