@@ -142,6 +142,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_wide_fwd_aug_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
     "celerite_wide_bwd_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
     "celerite_wide_tables": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
+    # the wide forms past the registers (J > 64), at J = 100 and 128
+    **{f"celerite_wide_{k}_j{2 * nc}": (WIDE_SRC, f"pioran_tpu/ops/{line}")
+       for nc in (50, 64) for k, line in (("fwd", "pallas_celerite.py:252"),
+                                          ("fwd_aug", "pallas_celerite_vjp.py:127"),
+                                          ("bwd", "pallas_celerite_vjp.py:540"))},
     # the carry entries (a block of a split series), narrow and wide, of
     # the TPU kernels whose carry refs they port
     "celerite_fwd_carry": (FWD_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
@@ -205,10 +210,13 @@ RESUME_NS = dict(num_particles=256, num_ns_mcmc=2, ns_move="rwm", num_samples=50
 MD_CHEES = dict(num_chains=64, num_warmup=100, num_samples=100, hmc_max_leapfrogs=8)
 MD_NUTS = dict(num_warmup=34, num_samples=6, max_depth=4)
 MD_NUTS_CHAINS = 16
-# phase 22: the DRWCelerite basis (two terms a component) at 20, 35 and 50
-# components, J = 40, 70, 100; timed at 20 and 32 components (J = 40, 64)
-WIDE_NC = (20, 35, 50)
+# phase 22: the DRWCelerite basis (two terms a component) at 20, 35, 50
+# and 64 components, J = 40, 70, 100, 128; timed at 20 and 32 components
+# (J = 40, 64) and, past the registers, at 50 and 64 (J = 100, 128), whose
+# entry-point paths (22c) give those rows' launches
+WIDE_NC = (20, 35, 50, 64)
 WIDE_TIMED_NC = (20, 32)
+WIDE_PAST_NC = (50, 64)
 WIDE_BATCHES = (64, 65)             # a batch, and a ragged one
 DRW_LL64 = 1021.110678373424        # JAX package, CPU, float64, at the referee mean
 # phase 14's 1.0 widened by the basis's +0.37 nats at the referee mean
@@ -396,7 +404,8 @@ def ptxas_summary(log: str) -> str:
     """'kernel<type,JP,grid[,carry]> regs spill stores/loads' for each
     entry function in nvcc's -Xptxas -v output (grid: shared or per-lane
     t; tables for K0; carry: the carry entry); the wide kernels as
-    wide_fwd<type,grid[,aug][,carry]> and wide_bwd<type,grid[,carry]>."""
+    split_fwd<type,cpt,grid[,aug][,carry][,tail]> and
+    split_bwd<type,cpt,grid[,carry][,tail]> (tail: past the registers)."""
     out, cur, spill = [], None, None
     for ln in log.splitlines():
         m = re.search(r"(?<![a-z_])(celerite_fwd_kernel|fwd_aug_kernel|bwd_kernel|"
@@ -411,14 +420,14 @@ def ptxas_summary(log: str) -> str:
             continue
         if "Compiling entry function" in ln and w:
             ints = re.findall(r"Li(\d+)E", w.group(4))
-            first, carry = (re.findall(r"Lb([01])E", w.group(5)) + ["0", "0"])[:2]
+            first, carry, tail = (re.findall(r"Lb([01])E", w.group(5)) + ["0"] * 3)[:3]
             cpt = f"{ints.pop(0)}," if w.group(1) == "split" else ""
             if w.group(2) == "fwd":
                 grid = ("shared", "per-lane", "tables")[int(ints[0])]
                 tag = grid + (",aug" if first == "1" else "")
             else:
                 tag = "per-lane" if first == "1" else "shared"
-            tag += ",carry" if carry == "1" else ""
+            tag += (",carry" if carry == "1" else "") + (",tail" if tail == "1" else "")
             cur, spill = f"{w.group(1)}_{w.group(2)}<{w.group(3)},{cpt}{tag}>", None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -2246,12 +2255,14 @@ def wide_gates(tag, ks, qs, ps, names):
 
 
 def wide_place(shape) -> str:
-    """Where a wide launch shape keeps the state and K4's T chunk."""
-    if shape.cpt:
+    """Where a wide launch shape keeps the state and K4's T slots."""
+    if shape.cpt <= 64:
         return (f"registers (2 threads a row, {shape.cpt} columns a thread), K4 T slots in smem "
                 f"ks={shape.ks}")
-    return (f"a thread a row, K4 carry in {'scratch' if shape.carry_scratch else 'smem'}, "
-            f"chunk in {'scratch' if shape.chunk_scratch else 'smem'}")
+    where = lambda x: "scratch" if x else "smem"  # noqa: E731
+    return (f"past the registers (2 threads a row, cw={shape.cpt}), forward tail in "
+            f"{where(shape.fwd_scratch)}, K4 G tail in {where(shape.carry_scratch)}, "
+            f"slots in {where(shape.chunk_scratch)} ks={shape.ks}")
 
 
 def hold_wide(spec64, nc, gen, dt, nv=None, model=None, batches=WIDE_BATCHES):
@@ -2443,6 +2454,31 @@ def phase_wide_times(dev, datasets):
         put("celerite_wide_fwd_multi", J, B, k2, c2, p2)
         put("celerite_wide_fwd_aug_multi", J, B, k3, c3, p3)
         put("celerite_wide_bwd_multi", J, B, k4, c4, p4)
+    # past the registers: K1 at B = 128, K3 and K4 at B = 512, with their
+    # plain versions at the same shapes, the kernel line's rows
+    for nc in WIDE_PAST_NC:
+        J = 2 * nc
+        basis = dict(n_components=nc, **DRW)
+        a, b, c, d, y, s2 = flagship_inputs(spec32, 128, gen, **basis)
+        xs = (a, b, c, d, t, y, s2, dt)
+        ms = cuda_ms(lambda: cc.batched_loglike(*xs), 10)  # noqa: B023
+        plain = cuda_ms(lambda: cc.batched_loglike_plain(*xs), 1)  # noqa: B023
+        put("celerite_wide_fwd", J, 128, ms, k1_cost(128, J, N), plain)
+        rows[f"celerite_wide_fwd_j{J}"] = (ms, plain, k1_cost(128, J, N))
+        a, b, c, d, y, s2 = flagship_inputs(spec32, 512, gen, **basis)
+        args = (a, b, c, d, t, y, s2)
+        ll, res = fwd_aug(*args, dt=dt)
+        g = torch.isfinite(ll).float()
+        k3 = cuda_ms(lambda: fwd_aug(*args, dt=dt), 5)  # noqa: B023
+        k4 = cuda_ms(lambda: bwd(*args, res, g, dt=dt), 3)  # noqa: B023
+        p3 = cuda_ms(lambda: fwd_aug_plain(*args, dt=dt), 1)  # noqa: B023
+        p4 = cuda_ms(lambda: bwd_plain(*args, res, g, dt=dt), 1)  # noqa: B023
+        c3, c4 = adjoint_cost(512, J, N, KC, 4, int(g.sum()))
+        put("celerite_wide_fwd_aug", J, 512, k3, c3, p3)
+        put("celerite_wide_bwd", J, 512, k4, c4, p4)
+        rows[f"celerite_wide_fwd_aug_j{J}"] = (k3, p3, c3)
+        rows[f"celerite_wide_bwd_j{J}"] = (k4, p4, c4)
+        del res
     for ln in lines:
         print(f"phase 22a times f32 N={N}: {ln}")
 
@@ -2505,15 +2541,16 @@ def phase_wide_smc(dev, out_dir):
 
 def phase_wide(dev, datasets):
     """Phase 22, beside the ChEES child: every wide kernel against its
-    plain version on the DRWCelerite flagship's coefficients at 20, 35 and
-    50 components (J = 40, 70, 100, at B = 65 and 64, and J = 40 at the
+    plain version on the DRWCelerite flagship's coefficients at 20, 35, 50
+    and 64 components (J = 40, 70, 100, 128 at B = 65 and 64, and J = 40 at the
     SMC fit's 1024 particles; the per-lane forms at J = 40 on phase 10's
     ragged datasets; K0 at J = 40 and 100), then the paths of the
     entry points that have no sampler here: no-gradient sweeps of the
     DRWCelerite many-model (the wide K2), its value and gradient (the
     wide per-lane K3/K4) and flagship sweeps of batched_loglike_tables
-    (the wide K0). Returns ({kernel: f32 max abs err}, those paths'
-    launches)."""
+    (the wide K0), and (22c) the DRWCelerite flagship builder at 50 and 64
+    components (J = 100, 128: the forms past the registers). Returns
+    ({kernel: f32 max abs err}, those paths' launches)."""
     import pioran_tpu_torch.inference as tinf
     from pioran_tpu_torch.ops.cuda_celerite import batched_loglike_tables
     from pioran_tpu_torch.ops.cuda_celerite_vjp import KC, wide_shape
@@ -2536,6 +2573,8 @@ def phase_wide(dev, datasets):
             f"{k} f64 {v[0]:.2e} f32 ratios {v[1][0]:.2f}/{v[1][1]:.2f}" for k, v in got.items()))
         for k, name in (("K1", "celerite_wide_fwd"), ("K3", "celerite_wide_fwd_aug"),
                         ("K4", "celerite_wide_bwd")):
+            if nc in WIDE_PAST_NC:
+                name = f"{name}_j{2 * nc}"
             max_abs[name] = max(max_abs.get(name, 0.0), got[k][2])
     model64 = tinf._many_model(datasets, device=dev, dtype=torch.float64)
     got = hold_wide(spec64, WIDE_NC[0], gen, None, model=model64)
@@ -2590,6 +2629,32 @@ def phase_wide(dev, datasets):
     share = float(torch.stack([torch.isfinite(x).float().mean() for x in lls]).mean())
     check(share > 0.9, f"DRWCelerite table sweeps: finite share {share:.3f}")
     launches["celerite_wide_tables"] = c["celerite_wide_tables"]
+    # 22c, past the registers: the DRWCelerite flagship at 50 and 64
+    # components through the builder's entry points, two no-gradient
+    # sweeps at B = 1024 and a value and gradient at B = 512
+    past = []
+    for nc in WIDE_PAST_NC:
+        J = 2 * nc
+        spec = drw_spec(dev, torch.float32, nc)
+        TH = referee_thetas(spec, 1024, gen)
+        Z = spec.prior.to_unconstrained(TH[:512])
+        zero_wide_counts()
+        with torch.no_grad():
+            lls = [spec.loglike_batch(TH), spec.loglike_batch(TH.flip(0))]
+        lp, grad = batch_value_and_grad(spec.logpost_batch, Z)
+        torch.cuda.synchronize()
+        c = wide_counts()
+        check(c["celerite_wide_fwd"] == 2 and c["celerite_wide_fwd_aug"] == 1
+              and c["celerite_wide_bwd"] == 1 and c["narrow"] == 0,
+              f"DRWCelerite J={J} paths: launches {c}")
+        share_j = float(torch.stack([torch.isfinite(x).float().mean() for x in lls]).mean())
+        check(share_j > 0.9 and bool(torch.isfinite(grad[torch.isfinite(lp)]).all())
+              and bool(torch.isfinite(lp).any()), f"DRWCelerite J={J}: finite share {share_j:.3f}")
+        for k in ("fwd", "fwd_aug", "bwd"):
+            launches[f"celerite_wide_{k}_j{J}"] = c[f"celerite_wide_{k}"]
+        past.append(f"J={J} finite share {share_j:.4f} logpost max {float(lp.max()):.3f}")
+    print(f"phase 22c past the registers: DRWCelerite flagship builders, 2 sweeps at B=1024 and "
+          f"a value+gradient at B=512 each: " + "; ".join(past))
     print(f"phase 22 paths: DRWCelerite many-model ({MANY_D} datasets x {MANY['num_chains']} "
           f"chains) {PATH_A_SWEEPS} no-gradient sweeps (finite share "
           f"{float(torch.stack(fin).mean()):.3f}) and two value+gradient evaluations, "
@@ -2608,7 +2673,10 @@ SEQ_N = 2**14            # 23a: a series split into SEQ_BLOCKS blocks, against o
 # whole number of K1's 32-step tables or of K3/K4's kc = 8 chunks
 SEQ_SHORT_N = 4 * 133
 SEQ_BLOCKS = 4
-SEQ_SHAPES = ((20, 64), (40, 16))  # (J, B): the warp-per-chain and the wide forms
+# (J, B): the warp-per-chain, the wide and the past-the-registers forms;
+# the first two timed in 23c
+SEQ_SHAPES = ((20, 64), (40, 16), (100, 8))
+SEQ_TIMED = (20, 40)
 SEQ_BUILDER_N = 2**15    # 23b: the builders' simulated light curve
 SEQ_BUILDER = (("SHO", 20, 64), ("DRWCelerite", 40, 16))  # basis, J, B
 # the carry entries' counters: kernel name -> (module, counter)
@@ -2754,9 +2822,11 @@ def phase_seq_carry(dev, seed):
     without a carry at N = 2^14 (float64 1e-9; float32: the same step
     arithmetic, so only the order of the partial sums differs) and against
     the chained plain loops at N = SEQ_SHORT_N (phase 2's and phase 6's
-    gates); then, on one block of the long series (K = 4096), each carry
-    entry's time against the entry without a carry and against its plain
-    version. Returns {kernel: (max abs f32 err, ms, plain ms, cost)}."""
+    gates; past the registers, J = 100, float32 at the rows' median and
+    90th percentile as phase 22); then, for J = 20 and 40, on one block
+    of the long series (K = 4096), each carry entry's time against the
+    entry without a carry and against its plain version. Returns
+    {kernel: (max abs f32 err, ms, plain ms, cost)}."""
     from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
 
     rows, times = {}, []
@@ -2843,15 +2913,22 @@ def phase_seq_carry(dev, seed):
             for i, (x, q, r) in enumerate(zip(got, own, refs)):
                 e_k, e_q = rel_rows(x, r), rel_rows(q, r)
                 ratio = max(ratio, e_k / max(e_q, 1e-7))
-                check(e_k <= max(3.0 * e_q, 1e-5), f"phase 23a J={J} f32 {ADJ_NAMES[i]}: "
-                      f"kernel rel err {e_k:.3e} > 3 x the plain loop's {e_q:.3e}")
+                if J > 64 and x.shape[0] > 1:  # past the registers: the wide kernels' gate
+                    f32_spread(f"phase 23a J={J}", ADJ_NAMES[i], chain_err(x, r), chain_err(q, r))
+                else:
+                    check(e_k <= max(3.0 * e_q, 1e-5), f"phase 23a J={J} f32 {ADJ_NAMES[i]}: "
+                          f"kernel rel err {e_k:.3e} > 3 x the plain loop's {e_q:.3e}")
                 key = names[1] if i < 8 else names[2]
                 worst[key] = max(worst[key], float((x.double() - q.double()).abs().max()))
             errs_line.append(f"vs plain f32 K1 abs={d1:.2e} K3/K4 worst kernel/plain "
                              f"ratio={ratio:.3f}")
+        print(f"phase 23a carry entries J={J} B={B}: ok N={SEQ_N} in {SEQ_BLOCKS} blocks vs "
+              f"one launch, N={SEQ_SHORT_N} vs the chained plain loops, lane 0 non-PD: "
+              + "; ".join(errs_line))
         # times on one block of the long series: each carry entry against
         # the same entry without a carry (in turns: carry, none, none,
-        # carry) and against its plain version (once)
+        # carry) and, at SEQ_TIMED's widths (the kernel line's rows),
+        # against its plain version (once)
         args, dt64 = seq_inputs(J, B, SEQ_N, seed, dev, torch.float32)
         K = SEQ_N // SEQ_BLOCKS
         a, b, c, d, t, y, s2 = args
@@ -2881,14 +2958,15 @@ def phase_seq_carry(dev, seed):
                                                             fns):
             m1, m0 = cuda_ms(with_carry, 10), cuda_ms(without, 10)
             m0, m1 = (m0 + cuda_ms(without, 10)) / 2, (m1 + cuda_ms(with_carry, 10)) / 2
-            pms = once_ms(plain)
-            rows[name] = (worst[name], m1, pms, carry_cost(kind, B, J, K, live))
+            pms = once_ms(plain) if J in SEQ_TIMED else float("nan")
+            if J in SEQ_TIMED:
+                rows[name] = (worst[name], m1, pms, carry_cost(kind, B, J, K, live))
+            else:
+                bms, by = bound(*carry_cost(kind, B, J, K, live))
+                times.append(f"{name} J={J} B={B} K={K}: bound_ms={bms:.5f} ({by})")
             times.append(f"{name} J={J} B={B} K={K}: carry_ms={m1:.4f} no_carry_ms={m0:.4f} "
                          f"ratio={m1 / m0:.3f} plain_ms={pms:.2f}")
         del res, res0
-        print(f"phase 23a carry entries J={J} B={B}: ok N={SEQ_N} in {SEQ_BLOCKS} blocks vs one "
-              f"launch, N={SEQ_SHORT_N} vs the chained plain loops, lane 0 non-PD: "
-              + "; ".join(errs_line))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     for ln in times:

@@ -24,15 +24,14 @@
 //
 // Why a block a chain: the warp-per-chain kernels keep row i of each J x J
 // block in lane i's registers; two rows a lane would need more than 255
-// registers. Here one thread block carries one chain, in one of two
-// designs, by J and dtype (ops/cuda_celerite_vjp.py `wide_shape`, which
-// passes the entries `cpt`):
+// registers. Here one thread block carries one chain: two threads a row of
+// the 2J x 2J state (ops/cuda_celerite_vjp.py `wide_shape` passes the
+// entries `cpt`):
 //
-// - The register design (cpt = 40 or 64; J <= cpt): two
-//   threads a row of the 2J x 2J state. Thread 2 r + hl holds columns
-//   [hl J, hl J + J) of row r in registers, cpt values, zeros past J; rows
-//   of per-step values sit in shared memory padded the same way, so a
-//   thread reads its columns as 16-byte vectors and the padding adds
+// - The register design (cpt = 40 or 64; J <= cpt). Thread 2 r + hl holds
+//   columns [hl J, hl J + J) of row r in registers, cpt values, zeros past
+//   J; rows of per-step values sit in shared memory padded the same way,
+//   so a thread reads its columns as 16-byte vectors and the padding adds
 //   zeros. The forward kernels (K1, K2, K0, K3, one template) keep S there:
 //   a step is the column loop (T = S + (W_r D) W, in K3 every kc steps
 //   the checkpoint, S = (ec_r ec) o T, q_r = S_r . U, the halves added by
@@ -51,14 +50,21 @@
 //   chain rule and the t-bar and dt-bar sums of a sub-chunk's steps run at
 //   its end, from rows kept per step; the residual rows, sincos and exp of
 //   up to 8 steps (a window of the chunk) are read once for its sub-chunks.
-// - One thread a row (J > 64, where a row segment no longer fits the
-//   registers of a block of 4 J threads):
-//   thread r owns row r of the state, stored by columns (entry (r, c) at
-//   c * ld + r) in dynamic shared memory where it fits the 232,448 bytes
-//   a block may use, else in a device-memory scratch the wrapper
-//   allocates. The forward kernels keep the whole symmetric S, S10
-//   included; K4 keeps G and the T chunk (three J x (J | 1) blocks a step,
-//   sub-chunks of ks <= 8 steps) in shared memory or the scratch.
+// - Past the registers (64 < J <= 128, Tail; cpt = cw, J rounded up to 4):
+//   the same kernels and layout with rows of 2 cw, 4 J threads (up to
+//   512), a thread's first tail_rc columns in registers (64 forward and 32
+//   in K4 in float32, 32 and 16 in float64) and the rest of its segment,
+//   the tail, in shared memory as 16-byte vectors interleaved over the
+//   threads (vector k of thread t at (k nts + t) V: a warp's accesses are
+//   consecutive), read and written once a step. Where the tail does not
+//   fit (float64 past J = 88 forward; K4's G in float32 past J = 116, in
+//   float64 past J = 72; K4's slots of ks = 8 steps at every J past 64)
+//   it is in a device scratch of the wrapper's, in the same layout, and K3
+//   writes its checkpoint rows straight to the table where the staging
+//   does not fit. The state S stays a thread's own (S10 beside S01, as in
+//   the register design), so no step needs a second barrier. K4 replays a
+//   chunk's T vector by vector through its steps in registers, so its
+//   slots are written once and read once a step.
 //
 // K4 carries the cotangent of T_{m+1} as the symmetric parts P00 = M00 +
 // M00^T and P11 = M11 + M11^T and both off-diagonal blocks M01 and M10 =
@@ -67,15 +73,17 @@
 // (as in csrc/celerite_adjoint.cu).
 //
 // What bounds them on this card: the N dependent steps of a chain, each
-// O(J^2) work; bytes are negligible (K0's tables aside). One thread a
-// row with S and G in shared memory spent three quarters of a step on the
-// column loop's shared-memory loads and stores, 3 warps a chain, five
-// barriers a step in K4 (tools/wide_probe.py, PERF.md). The register design
-// keeps the state out of memory, reads its column values as 16-byte
-// vectors, and has one barrier a step, so a step is bound by the issue of
-// its per-entry arithmetic (about 6 instructions an entry forward, 11 in
-// K4 and 4 a replayed step), with two to four chains an SM in float32 at
-// J = 40. Rounding follows the plain loops' statements, with two partial
+// O(J^2) work; bytes are negligible (K0's tables aside). An earlier design
+// (one thread a row, S and G in shared memory) spent three quarters of a
+// step on the column loop's shared-memory loads and stores, 3 warps a
+// chain, five barriers a step in K4 (tools/wide_probe.py, PERF.md). The
+// register design keeps the state out of memory, reads its column values
+// as 16-byte vectors, and has one barrier a step, so a step is bound by
+// the issue of its per-entry arithmetic (about 6 instructions an entry
+// forward, 11 in K4 and 4 a replayed step), with two to four chains an SM
+// in float32 at J = 40; past the registers a step adds one 16-byte load
+// and store of the tail per 4 (float32) entries, with 8 to 16 warps a chain.
+// Rounding follows the plain loops' statements, with two partial
 // sums per thread and the halves added last (no reassociation of the step).
 // chip_smoke.py holds each entry against its plain PyTorch version.
 //
@@ -102,11 +110,13 @@
 // f64} (K3; cin, cout, parts after Tcp) and celerite_wide_bwd_carry_{f32,f64}
 // (K4; ain, aout after dtb). The per-lane entries take the
 // int32 n_valid after s2 (K2, K3) or g (K4). Every entry takes `cpt` last
-// of its ints (0: one thread a row), K4 its sub-chunk ks before it. A null
-// `state` (forward) or `carry` / `chunk` (K4) puts that part in shared
-// memory (or registers), else it is a device scratch of the wrapper's:
-// `state` (B, R, R), `carry` (B, R, R) and `chunk` (B, ks, 3, J, J | 1) one
-// thread a row; the register design takes none of them. They launch on the given stream,
+// of its ints (40 or 64: the register design; past 64 terms cw), K4 its
+// sub-chunk ks before it. Past 64 terms a null `state` (forward) or
+// `carry` / `chunk` (K4) puts the forward tail, G's tail or the slots in
+// shared memory, else that part is a device scratch of the wrapper's:
+// `state` and `carry` (B, 4 J rounded up to 32, cw - tail_rc) and `chunk`
+// (B, ks, 4 J rounded up to 32, cw); the register design takes none of
+// them. They launch on the given stream,
 // never synchronise, allocate nothing, and return cudaGetLastError() (or
 // cudaErrorInvalidValue for what they do not take) as an int.
 
@@ -118,10 +128,6 @@
 namespace {
 
 constexpr int kMaxTerms = 128;
-constexpr int kMaxThreads = 2 * kMaxTerms;  // a thread a row of the 2J x 2J state
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxSub = 8;                  // K4: steps of a chunk's T held at once
-constexpr int kGroup = 4;                   // columns a thread loads before it stores
 constexpr int kSmemBytes = 232448;          // shared memory one block may use on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 constexpr double kLog2Pi = 1.8378770664093453;
@@ -157,59 +163,7 @@ __device__ __forceinline__ void kahan_add(T& sum, T& comp, T x) {
   sum = tt;
 }
 
-// Sums K values over the block; every thread gets the totals, added in
-// the same order. Ends with the block's reads of `red` pending: the
-// caller passes a __syncthreads() before `red` is written again.
-template <typename T, int K>
-__device__ __forceinline__ void block_sum(T (&v)[K], T* red) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_xor_sync(kFull, v[k], off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    T s = T(0);
-    for (int w = 0; w < nw; ++w) s += red[w * K + k];
-    v[k] = s;
-  }
-}
-
-__host__ __device__ constexpr int threads_of(int J) { return (2 * J + 31) / 32 * 32; }
-
-// K4's leading dimension of a J x J block of the T chunk: odd, so that a
-// thread reading its column (stride ld) is free of bank conflicts
-__host__ __device__ constexpr int odd_ld(int J) { return J | 1; }
-
-// The forward kernels' shared memory, in values: the rows U, ec and W [R]
-// each, the reduction buffer, then S [R][R] unless it lives in the scratch.
-__host__ __device__ constexpr long long fwd_smem_len(int J, bool state_in_smem) {
-  return 3LL * 2 * J + 2 * kMaxWarps + (state_in_smem ? 4LL * J * J : 0);
-}
-
-// K4's T chunk for ks steps, in values: three J x odd_ld(J) blocks a step.
-__host__ __device__ constexpr long long chunk_len(int J, int ks) {
-  return 3LL * ks * J * odd_ld(J);
-}
-
-// K4's shared memory, in values: the rows W, U, qbar and ec [R] each, the
-// exchange rows [3 R], the reduction buffer, then G [R][R] and the T chunk
-// where they live in shared memory.
-__host__ __device__ constexpr long long bwd_smem_len(int J, int ks, bool carry_in_smem,
-                                                     bool chunk_in_smem) {
-  return 7LL * 2 * J + 3 * kMaxWarps + (carry_in_smem ? 4LL * J * J : 0) +
-         (chunk_in_smem ? chunk_len(J, ks) : 0);
-}
-
-// ---------------------------------------------------------------------------
-// K1, K2, K0 and K3: the forward sweep
-// ---------------------------------------------------------------------------
+// The kernels' arguments (the C entries below fill them)
 
 template <typename T>
 struct FwdArgs {
@@ -219,210 +173,13 @@ struct FwdArgs {
   const int* n_valid;               // per-lane grids (B,)
   T* out;                           // (B,)
   T *W0t, *W1t, *P0t, *P1t, *Dt, *ZPt, *Tcp;  // K3's residual tables
-  T* state;                         // (B, R, R) scratch, or null: shared memory
+  T* state;                         // past the registers: the tail scratch, or null
   const T* cin;                     // carry entries: the state in, out, the partials
   T *cout, *parts;
   int B, J, N, kc;
+  int cw;                           // past the registers: a row half's width
+  bool stage;                       // past the registers: K3 stages its checkpoints
 };
-
-// G: kShared (K1, K3), kPerLane (K2, per-lane K3), kTables (K0).
-// Aug: K3, the value plus the residual tables; every step runs and the
-// per-lane sums are masked past n_valid. Without it the per-lane loop ends
-// at n_valid, since nothing after a chain's last live step feeds its value.
-// Carry: a block of a split series (header; G == kShared).
-template <typename T, int G, bool Aug, bool Carry>
-__global__ void __launch_bounds__(kMaxThreads)
-wide_fwd_kernel(const FwdArgs<T> p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int chain = blockIdx.x;
-  const int r = threadIdx.x;
-  const int J = p.J, R = 2 * J, N = p.N;
-  const bool act = r < R;
-  const int h = (act && r >= J) ? 1 : 0;  // the sin-type half
-  const int i = act ? r - h * J : 0;      // this row's term
-  T* Urow = reinterpret_cast<T*>(smem_raw);
-  T* Erow = Urow + R;
-  T* Wrow = Erow + R;
-  T* red = Wrow + R;
-  T* S = p.state ? p.state + static_cast<long long>(chain) * R * R : red + 2 * kMaxWarps;
-
-  const T* t = p.t;
-  const T* dt = p.dt;
-  int nv = N, nsteps = N;
-  if (G == kPerLane) {
-    t += static_cast<long long>(chain) * N;
-    if (dt) dt += static_cast<long long>(chain) * (N - 1);
-    nv = p.n_valid[chain];
-    if (!Aug) nsteps = min(max(nv, 0), N);
-  }
-  const long long cj = static_cast<long long>(chain) * J + i;
-  T ai = T(0), bi = T(0), ci = T(0), di = T(0), suma;
-  if (G == kTables) {
-    suma = p.suma[chain];
-  } else {
-    if (act) {
-      ai = p.a[cj];
-      bi = p.b[cj];
-      ci = p.c[cj];
-      di = p.d[cj];
-    }
-    T v[1] = {h == 0 ? ai : T(0)};
-    block_sum<T, 1>(v, red);
-    suma = v[0];
-  }
-  const long long JJ = static_cast<long long>(J) * J;
-  const long long C = 3 * JJ + 4 * J + 2;  // carry values a chain
-  const T* cin = Carry ? p.cin + chain * C : nullptr;
-  // S by columns, (rr, cc) at cc R + rr; a carry holds S00, S01 and S11
-  // row-major (S10 = S01^T)
-  for (long long e = r; e < static_cast<long long>(R) * R; e += blockDim.x) {
-    T v = T(0);
-    if (Carry) {
-      const int rr = static_cast<int>(e % R), cc = static_cast<int>(e / R);
-      const int hr = rr >= J, hc = cc >= J;
-      const int ir = rr - hr * J, ic = cc - hc * J;
-      v = (hr && !hc) ? cin[JJ + static_cast<long long>(ic) * J + ir]
-                      : cin[(hr + hc) * JJ + static_cast<long long>(ir) * J + ic];
-    }
-    S[e] = v;
-  }
-
-  T Wr = T(0), f = T(0);   // W_{n-1}, f_{n-1} of row r
-  T Dp = T(0), zpp = T(0);  // D_{n-1}, zp_{n-1}
-  if (Carry) {
-    if (act) {
-      Wr = cin[3 * JJ + r];
-      f = cin[3 * JJ + R + r];
-    }
-    Dp = cin[3 * JJ + 2 * R];
-    zpp = cin[3 * JJ + 2 * R + 1];
-  }
-  if (act) Wrow[r] = Wr;
-  T logdet = T(0), clog = T(0), quad = T(0), cquad = T(0);
-  T minD = T(INFINITY);
-  const long long cN = static_cast<long long>(chain) * N;
-  const int nck = Aug ? (N + p.kc - 1) / p.kc : 0;
-
-  for (int n = 0; n < nsteps; ++n) {
-    T Ur = T(0), Vr = T(0), Er = T(0);
-    if (act) {
-      if (G == kTables) {
-        const long long o = (static_cast<long long>(n) * R + r) * p.B + chain;
-        Ur = p.U[o];
-        Vr = p.V[o];
-        Er = p.phi[o];
-      } else {
-        const T tn = t[n];
-        const T dtn = Carry ? dt[n] : (n == 0 ? T(0) : (dt ? dt[n - 1] : tn - t[n - 1]));
-        T si, co;
-        Ops<T>::sincos_(di * tn, &si, &co);
-        Ur = h ? ai * si - bi * co : ai * co + bi * si;
-        Vr = h ? si : co;
-        Er = Ops<T>::exp_(-(ci * dtn));
-      }
-      Urow[r] = Ur;
-      Erow[r] = Er;
-    }
-    __syncthreads();  // this step's U and ec rows, and the last step's W row
-
-    T sums[2] = {T(0), T(0)};
-    T q = T(0), pre = T(0);
-    if (act) {
-      const T wd = Wr * Dp;
-      // K3: every kc steps this step's T rows go to the checkpoint, T00
-      // and T01 from rows r < J, T11 from rows r >= J (T10 = T01^T is not kept)
-      T* tile = (Aug && n % p.kc == 0)
-                    ? p.Tcp + (static_cast<long long>(chain) * nck + n / p.kc) * 3 * JJ
-                    : nullptr;
-      // columns in groups of kGroup: every load of a group before its
-      // stores, which the compiler may not reorder past (the rows and S
-      // may alias as far as it knows)
-      auto column = [&](int cc, T s, T w, T e, T u) {
-        const T Tv = s + wd * w;
-        if (Aug && tile != nullptr) {
-          const int hc = cc >= J;
-          if (h <= hc) tile[(h + hc) * JJ + static_cast<long long>(i) * J + (cc - hc * J)] = Tv;
-        }
-        const T Sv = (Er * e) * Tv;
-        q += Sv * u;
-        return Sv;
-      };
-      int cc = 0;
-      for (; cc + kGroup <= R; cc += kGroup) {
-        T s[kGroup], w[kGroup], e[kGroup], u[kGroup];
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          s[k] = S[(cc + k) * R + r];
-          w[k] = Wrow[cc + k];
-          e[k] = Erow[cc + k];
-          u[k] = Urow[cc + k];
-        }
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) s[k] = column(cc + k, s[k], w[k], e[k], u[k]);
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) S[(cc + k) * R + r] = s[k];
-      }
-      for (; cc < R; ++cc)
-        S[cc * R + r] = column(cc, S[cc * R + r], Wrow[cc], Erow[cc], Urow[cc]);
-      pre = f + Wr * zpp;
-      f = Er * pre;
-      sums[0] = Ur * q;
-      sums[1] = Ur * f;
-    }
-    block_sum<T, 2>(sums, red);
-    const T Dn = (suma + p.s2[cN + n]) - sums[0];
-    const T zpn = p.y[cN + n] - sums[1];
-    Wr = act ? (Vr - q) / Dn : T(0);
-    if (act) Wrow[r] = Wr;  // every thread's column reads of W were before block_sum's barrier
-    if (Aug) {
-      if (act) {
-        const long long o = (cN + n) * J + i;
-        (h ? p.W1t : p.W0t)[o] = Wr;
-        (h ? p.P1t : p.P0t)[o] = pre;
-      }
-      if (r == 0) {
-        p.Dt[cN + n] = Dn;
-        p.ZPt[cN + n] = zpn;
-      }
-    }
-    if (r == 0) {
-      const bool live = G != kPerLane || n < nv;
-      kahan_add(logdet, clog, live ? Ops<T>::log_(Ops<T>::abs_(Dn)) : T(0));
-      kahan_add(quad, cquad, live ? zpn * zpn / Dn : T(0));
-      minD = (live && Dn < minD) ? Dn : minD;
-    }
-    Dp = Dn;
-    zpp = zpn;
-  }
-  if (Carry) {  // the state after the last step (S row r is this thread's own), the partials
-    T* co = p.cout + chain * C;
-    if (act) {
-      for (int cc = h * J; cc < R; ++cc) {
-        const int hc = cc >= J;
-        co[(h + hc) * JJ + static_cast<long long>(i) * J + (cc - hc * J)] = S[cc * R + r];
-      }
-      co[3 * JJ + r] = Wr;
-      co[3 * JJ + R + r] = f;
-    }
-    if (r == 0) {
-      co[3 * JJ + 2 * R] = Dp;
-      co[3 * JJ + 2 * R + 1] = zpp;
-      p.parts[3LL * chain] = logdet;
-      p.parts[3LL * chain + 1] = quad;
-      p.parts[3LL * chain + 2] = minD;
-    }
-    return;
-  }
-  if (r == 0) {
-    const T ll = T(-0.5) * (logdet + quad + static_cast<T>(nv) * T(kLog2Pi));
-    const bool ok = (minD > T(0)) && isfinite(ll);
-    p.out[chain] = ok ? ll : T(-INFINITY);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4: the reverse sweep
-// ---------------------------------------------------------------------------
 
 template <typename T>
 struct BwdArgs {
@@ -430,309 +187,13 @@ struct BwdArgs {
   const int* n_valid;
   const T *W0t, *W1t, *P0t, *P1t, *Dt, *ZPt, *Tcp;
   T *abar, *bbar, *cbar, *dbar, *ybar, *s2bar, *tb, *dtb;
-  T* carry;  // (B, R, R) scratch, or null: shared memory
-  T* chunk;  // (B, chunk_len(J, ks)) scratch, or null: shared memory
+  T* carry;  // past the registers: G's tail scratch, or null: shared memory
+  T* chunk;  // past the registers: the slots' scratch, or null: shared memory
   const T* ain;  // carry entries: the adjoint carry in and out
   T* aout;
   int B, J, N, kc, ks;
+  int cw;    // past the registers: a row half's width
 };
-
-template <typename T, bool PerLaneT, bool Carry>
-__global__ void __launch_bounds__(kMaxThreads)
-wide_bwd_kernel(const BwdArgs<T> p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int chain = blockIdx.x;
-  const int r = threadIdx.x;
-  const int J = p.J, R = 2 * J, N = p.N, kc = p.kc, ks = p.ks;
-  const bool act = r < R;
-  const int h = (act && r >= J) ? 1 : 0;
-  const int i = act ? r - h * J : 0;
-  const long long cj = static_cast<long long>(chain) * J + i;
-  const long long cN = static_cast<long long>(chain) * N;
-  const T gl = p.g[chain];
-  const long long CA = 3LL * J * J + 2 * J;  // adjoint carry values a chain
-  if (gl == T(0)) {  // no seed (a -inf chain): exact zeros, whatever the tables hold
-    if (act && h == 0) p.abar[cj] = p.bbar[cj] = p.cbar[cj] = p.dbar[cj] = T(0);
-    for (int n = r; n < N; n += blockDim.x)
-      p.ybar[cN + n] = p.s2bar[cN + n] = p.tb[cN + n] = p.dtb[cN + n] = T(0);
-    if (Carry) {
-      for (long long e = r; e < CA; e += blockDim.x) p.aout[chain * CA + e] = T(0);
-    }
-    return;
-  }
-  const T* t = p.t;
-  const T* dt = p.dt;
-  int nv = N;
-  if (PerLaneT) {
-    t += static_cast<long long>(chain) * N;
-    if (dt) dt += static_cast<long long>(chain) * (N - 1);
-    nv = p.n_valid[chain];
-  }
-  T ai = T(0), bi = T(0), ci = T(0), di = T(0);
-  if (act) {
-    ai = p.a[cj];
-    bi = p.b[cj];
-    ci = p.c[cj];
-    di = p.d[cj];
-  }
-  auto step_dt = [&](int m) -> T {
-    if (Carry) return dt[m];
-    if (m == 0) return T(0);
-    return dt ? dt[m - 1] : t[m] - t[m - 1];
-  };
-
-  T* Wrow = reinterpret_cast<T*>(smem_raw);
-  T* Urow = Wrow + R;
-  T* Qrow = Urow + R;  // qbar
-  T* Erow = Qrow + R;  // ec
-  T* X = Erow + R;     // exchange: Ubar [R], Vbar [R], the ec cotangent's parts [R]
-  T* red = X + 3 * R;
-  T* tail = red + 3 * kMaxWarps;
-  const bool carry_in_smem = p.carry == nullptr;
-  T* G = carry_in_smem ? tail : p.carry + static_cast<long long>(chain) * R * R;
-  T* Tb = p.chunk == nullptr ? tail + (carry_in_smem ? 4LL * J * J : 0)
-                             : p.chunk + static_cast<long long>(chain) * chunk_len(J, ks);
-  const int ld = odd_ld(J);
-  const int blk = J * ld;  // a J x J block of the chunk (offsets within a chain fit an int)
-  const long long JJ = static_cast<long long>(J) * J;
-
-  // T(r, c) of a chunk step: the first half of the columns (c < J) is row
-  // i of T00 for r < J and column i of T01 for r >= J; the second half is
-  // row i of T01 (r < J) or of T11 (r >= J)
-  const int lo_base = h ? blk + i * ld : i;
-  const int lo_stride = h ? 1 : ld;
-  const int hi_base = (h + 1) * blk + i;
-
-  // G by columns, (rr, cc) at cc R + rr; an adjoint carry holds P00, M01
-  // and P11 row-major (M10 = M01^T)
-  const T* ain = Carry ? p.ain + chain * CA : nullptr;
-  for (long long e = r; e < static_cast<long long>(R) * R; e += blockDim.x) {
-    T v = T(0);
-    if (Carry) {
-      const int rr = static_cast<int>(e % R), cc = static_cast<int>(e / R);
-      const int hr = rr >= J, hc = cc >= J;
-      const int ir = rr - hr * J, ic = cc - hc * J;
-      v = (hr && !hc) ? ain[JJ + static_cast<long long>(ic) * J + ir]
-                      : ain[(hr + hc) * JJ + static_cast<long long>(ir) * J + ic];
-    }
-    G[e] = v;
-  }
-  T cp = (Carry && act) ? ain[3 * JJ + r] : T(0);  // deferred cotangent of pre_{m+1}, row r
-  T ab = T(0), bb = T(0), cb = T(0), db = T(0), sumabar = T(0);
-  const int nck = (N + kc - 1) / kc;
-
-  for (int ch = nck - 1; ch >= 0; --ch) {
-    const int base = ch * kc;
-    const int len = min(kc, N - base);
-    const T* ck = p.Tcp + (static_cast<long long>(chain) * nck + ch) * 3 * JJ;
-    for (int sc = (len + ks - 1) / ks - 1; sc >= 0; --sc) {
-      const int s0 = base + sc * ks;
-      const int s1 = min(s0 + ks, base + len);
-      __syncthreads();  // the last sweep's reads of the chunk and the rows are done
-
-      // ---- phase 1: T_m for m in [s0, s1) from the checkpoint; the steps
-      // before s0 are replayed in place in slot 0. Each thread owns its rows
-      // of T00 and T01 (r < J) or T11 (r >= J), so only the column rows
-      // need barriers.
-      if (act) {
-        for (int cc = h * J; cc < R; ++cc) {
-          const int hc = cc >= J;
-          const int j = cc - hc * J;
-          Tb[(h + hc) * blk + j * ld + i] =
-              ck[(h + hc) * JJ + static_cast<long long>(i) * J + j];
-        }
-      }
-      for (int m = base; m < s1 - 1; ++m) {
-        // T_{m+1} = (ec_m ec_m^T) o T_m + D_m W_m W_m^T
-        T Er = T(0), Wr = T(0);
-        if (act) {
-          Er = Ops<T>::exp_(-(ci * step_dt(m)));
-          Wr = (h ? p.W1t : p.W0t)[(cN + m) * J + i];
-          Erow[r] = Er;
-          Wrow[r] = Wr;
-        }
-        __syncthreads();
-        const T wd = Wr * p.Dt[cN + m];
-        T* src = Tb + (m >= s0 ? (m - s0) : 0) * 3 * blk;
-        T* dst = Tb + (m + 1 >= s0 ? (m + 1 - s0) : 0) * 3 * blk;
-        if (act) {
-          // this thread's own rows, in groups as in the forward sweep
-          auto at = [&](int cc) {
-            const int hc = cc >= J;
-            return (h + hc) * blk + (cc - hc * J) * ld + i;
-          };
-          int cc = h * J;
-          for (; cc + kGroup <= R; cc += kGroup) {
-            T v[kGroup], e[kGroup], w[kGroup];
-#pragma unroll
-            for (int k = 0; k < kGroup; ++k) {
-              v[k] = src[at(cc + k)];
-              e[k] = Erow[cc + k];
-              w[k] = Wrow[cc + k];
-            }
-#pragma unroll
-            for (int k = 0; k < kGroup; ++k) dst[at(cc + k)] = (Er * e[k]) * v[k] + wd * w[k];
-          }
-          for (; cc < R; ++cc) dst[at(cc)] = (Er * Erow[cc]) * src[at(cc)] + wd * Wrow[cc];
-        }
-        __syncthreads();
-      }
-
-      // ---- phase 2: the reverse sweep over the sub-chunk's steps
-      for (int m = s1 - 1; m >= s0; --m) {
-        const T tn = t[m];
-        const T dtn = step_dt(m);
-        const T Dm = p.Dt[cN + m];
-        const T zpm = p.ZPt[cN + m];
-        const T rD = T(1) / Dm;
-        T co = T(0), si = T(0), Ur = T(0), Vr = T(0), Er = T(0), Wr = T(0), pre = T(0);
-        if (act) {
-          Ops<T>::sincos_(di * tn, &si, &co);
-          Ur = h ? ai * si - bi * co : ai * co + bi * si;
-          Vr = h ? si : co;
-          Er = Ops<T>::exp_(-(ci * dtn));
-          const long long o = (cN + m) * J + i;
-          Wr = (h ? p.W1t : p.W0t)[o];
-          pre = (h ? p.P1t : p.P0t)[o];
-          Wrow[r] = Wr;
-        }
-        const T qr = Vr - Wr * Dm;
-        __syncthreads();  // (1) the W row
-
-        // consume G: T_{m+1} = S_m + D_m W_m W_m^T. diag is row r of P00 (or
-        // P11) times W0 (W1), off row r of M01 (M10) times W1 (W0)
-        T lo = T(0), hi = T(0);
-        if (act) {
-          for (int cc = 0; cc < J; ++cc) lo += G[cc * R + r] * Wrow[cc];
-          for (int cc = J; cc < R; ++cc) hi += G[cc * R + r] * Wrow[cc];
-        }
-        const T diag = h ? hi : lo;
-        const T off = h ? lo : hi;
-        const T Wbar = (diag + off) * Dm + cp * zpm;
-        T sums[3] = {h ? T(0.5) * Wr * diag : Wr * (T(0.5) * diag + off),  // Dbar
-                     cp * Wr,                                               // zpbar (pre_{m+1})
-                     Wbar * Wr};                                            // sum(Wbar o W)
-        block_sum<T, 3>(sums, red);  // (2)
-        T Dbar = sums[0], zpbar = sums[1];
-        const T Wsum = sums[2];
-        T fbar = cp;
-
-        // loss seeds, scaled by the chain's cotangent, on the live steps
-        if (!PerLaneT || m < nv) {
-          Dbar -= T(0.5) * gl * (rD - zpm * zpm * (rD * rD));
-          zpbar -= gl * zpm * rD;
-        }
-        // zp = y - U . f, f = ec o pre
-        T Ubar = -zpbar * (Er * pre);
-        fbar -= zpbar * Ur;
-        T ecpart = fbar * pre;
-        cp = Er * fbar;
-        // W = (V - q) / D
-        const T Vbar = Wbar * rD;
-        T qbar = -Vbar;
-        Dbar -= Wsum * rD;
-        // D = suma + s2 - U . q
-        sumabar += Dbar;
-        Ubar -= Dbar * qr;
-        qbar -= Dbar * Ur;
-        if (r == 0) {
-          p.ybar[cN + m] = zpbar;
-          p.s2bar[cN + m] = Dbar;
-        }
-        if (act) {
-          Urow[r] = Ur;
-          Qrow[r] = qbar;
-          Erow[r] = Er;
-        }
-        __syncthreads();  // (3) the U, qbar and ec rows
-
-        // q = S U with S = (ec ec^T) o T: the U and ec cotangents, and the
-        // new G = (ec ec^T) o Q, Q = G + qbar U^T + U qbar^T (row r)
-        if (act) {
-          const T* Tm = Tb + (m - s0) * 3 * blk;
-          T uacc = T(0), eacc = T(0);
-          auto column = [&](T tv, T gv, T ecc, T Uc, T qc) {
-            const T ee = Er * ecc;
-            const T Q = gv + qbar * Uc + Ur * qc;
-            uacc += ee * tv * qc;
-            eacc += Q * tv * ecc;
-            return ee * Q;
-          };
-          for (int half = 0; half < 2; ++half) {
-            const T* tp = Tm + (half ? hi_base : lo_base);
-            const int stride = half ? ld : lo_stride;
-            T* gh = G + half * J * R + r;
-            const T* eh = Erow + half * J;
-            const T* uh = Urow + half * J;
-            const T* qh = Qrow + half * J;
-            int j = 0;
-            for (; j + kGroup <= J; j += kGroup) {  // loads of a group before its stores
-              T tv[kGroup], gv[kGroup], ev[kGroup], uv[kGroup], qv[kGroup];
-#pragma unroll
-              for (int k = 0; k < kGroup; ++k) {
-                tv[k] = tp[(j + k) * stride];
-                gv[k] = gh[(j + k) * R];
-                ev[k] = eh[j + k];
-                uv[k] = uh[j + k];
-                qv[k] = qh[j + k];
-              }
-#pragma unroll
-              for (int k = 0; k < kGroup; ++k) gv[k] = column(tv[k], gv[k], ev[k], uv[k], qv[k]);
-#pragma unroll
-              for (int k = 0; k < kGroup; ++k) gh[(j + k) * R] = gv[k];
-            }
-            for (; j < J; ++j)
-              gh[j * R] = column(tp[j * stride], gh[j * R], eh[j], uh[j], qh[j]);
-          }
-          Ubar += uacc;
-          ecpart += eacc;
-          X[r] = Ubar;
-          X[R + r] = Vbar;
-          X[2 * R + r] = ecpart;
-        }
-        __syncthreads();  // (4) the exchange rows
-
-        // the coefficient chain rule, term by term (threads r < J): U0 = a co
-        // + b si, U1 = a si - b co, V = (co, si), co = cos(d t), si =
-        // sin(d t), ec = exp(-c dt)
-        T tsum[2] = {T(0), T(0)};
-        if (act && h == 0) {
-          const T U0bar = X[i], U1bar = X[J + i];
-          T cobar = X[R + i], sibar = X[R + J + i];
-          const T ecbar = X[2 * R + i] + X[2 * R + J + i];
-          ab += U0bar * co + U1bar * si;
-          bb += U0bar * si - U1bar * co;
-          cobar += U0bar * ai - U1bar * bi;
-          sibar += U0bar * bi + U1bar * ai;
-          const T dchain = -cobar * si + sibar * co;
-          db += tn * dchain;
-          cb -= dtn * ecbar * Er;
-          tsum[0] = di * dchain;
-          tsum[1] = -(ci * ecbar * Er);
-        }
-        block_sum<T, 2>(tsum, red);  // (5)
-        if (r == 0) {
-          p.tb[cN + m] = tsum[0];
-          p.dtb[cN + m] = tsum[1];
-        }
-      }
-    }
-  }
-  if (act && h == 0) {
-    p.abar[cj] = ab + sumabar;  // sum(a) feeds D at every step
-    p.bbar[cj] = bb;
-    p.cbar[cj] = cb;
-    p.dbar[cj] = db;
-  }
-  if (Carry && act) {  // G's row r (this thread's own) and cpre at the block's first step
-    T* ao = p.aout + chain * CA;
-    for (int cc = h * J; cc < R; ++cc) {
-      const int hc = cc >= J;
-      ao[(h + hc) * JJ + static_cast<long long>(i) * J + (cc - hc * J)] = G[cc * R + r];
-    }
-    ao[3 * JJ + r] = cp;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The register design: a row split over two threads, its state in registers
@@ -747,6 +208,18 @@ wide_bwd_kernel(const BwdArgs<T> p) {
 constexpr int kTab = 8;                    // steps a table holds
 constexpr int kSplitMaxThreads = 256;      // 4 * 64: two threads a row of 128
 constexpr int kSplitMaxWarps = kSplitMaxThreads / 32;
+constexpr int kTailMaxThreads = 4 * kMaxTerms;  // past the registers: 4 J up to 512
+constexpr int kTailMaxWarps = kTailMaxThreads / 32;
+
+// Past 64 terms (Tail): a thread holds the first RC columns of its row
+// segment in registers and columns [RC, cw) in shared memory, or in a
+// device scratch where they do not fit. RC by dtype and kernel: the forward
+// state takes half a thread's 128 registers (512 threads an SM at J = 128),
+// K4 less, its column loads need the rest.
+template <typename T, bool Bwd>
+__host__ __device__ constexpr int tail_rc() {
+  return sizeof(T) == 4 ? (Bwd ? 32 : 64) : (Bwd ? 16 : 32);
+}
 
 // Blocks an SM the compiler sizes a kernel's registers for (65,536 / (4
 // CPT threads x this)): float32 at CPT = 40 four forward chains (one wave
@@ -868,17 +341,34 @@ __host__ __device__ constexpr long long split_slot_len(int J, int cpt) {
   return static_cast<long long>(split_threads(J)) * cpt;
 }
 
-// K1, K2, K0 and K3 (one template, as wide_fwd_kernel): one block a chain.
+// Past the registers: the forward kernels' shared memory up to the tail,
+// in values (the split_fwd_len layout with rows of 2 cw and 16 warps),
+// rounded to a whole number of vectors.
+__host__ __device__ constexpr long long tail_fwd_off(int cw, int stJ) {
+  return (2LL * kTab * 3 * 2 * cw + 4LL * cw + 4LL * kTab + 4LL * kTailMaxWarps + 2LL * kTab +
+          3LL * stJ * (stJ + 1) + 3) / 4 * 4;
+}
+
+// Past the registers: K4's shared memory but the slots and G's tail.
+__host__ __device__ constexpr long long tail_bwd_len(int cw, int ks) {
+  return kTab * (9LL * cw + 4) + 4LL * cw + ks * 8LL * cw + 8LL * kTailMaxWarps;
+}
+
+// K1, K2, K0 and K3 (one template): one block a chain.
 // A step: the column loop T = S + (W_r D) W, S = (ec_r ec) o T, q_r =
 // S U (both halves, a shuffle), then one barrier, after which every
 // thread has D and zp from the warps' partial sums and the rows V - q
 // (written before it), and so W of its columns. Tables of U, V and ec
 // for kTab steps are built a block ahead from values loaded a block
 // before that; the Kahan sums of a block's logs run on warp 0 at its end.
-template <typename T, int CPT, int G, bool Aug, bool Carry>
-__global__ void __launch_bounds__(4 * CPT, (split_min_blocks<T, CPT, false>()))
+template <typename T, int CPT, int G, bool Aug, bool Carry, bool Tail = false>
+__global__ void __launch_bounds__(Tail ? kTailMaxThreads : 4 * CPT,
+                                  (Tail ? 1 : split_min_blocks<T, CPT, false>()))
 split_fwd_kernel(const FwdArgs<T> p) {
   constexpr int V = Vec<T>::n;
+  constexpr int MW = Tail ? kTailMaxWarps : kSplitMaxWarps;
+  // a row half of the per-step rows: CPT, or past the registers p.cw
+  const int RW = Tail ? p.cw : CPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int chain = blockIdx.x, tid = threadIdx.x;
   const int J = p.J, R = 2 * J, N = p.N;
@@ -886,21 +376,33 @@ split_fwd_kernel(const FwdArgs<T> p) {
   const bool act = r < R;
   const int h = (act && r >= J) ? 1 : 0;
   const int i = act ? r - h * J : 0;
-  const int own = h * CPT + i;  // this row in the tables
+  const int own = h * RW + i;  // this row in the tables
   const int lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
   const bool pt = tid < 4 * J;  // builds table entries: term ti, steps q0 and q0 + 4
   const int ti = pt ? tid % J : 0, q0 = pt ? tid / J : 0;
-  T* Ut = reinterpret_cast<T*>(smem_raw);   // [2][kTab][2 CPT]
-  T* Vt = Ut + 2 * kTab * 2 * CPT;
-  T* Et = Vt + 2 * kTab * 2 * CPT;
-  T* dq = Et + 2 * kTab * 2 * CPT;           // [2][2 CPT]: V - q of a step's rows
-  T* Yt = dq + 4 * CPT;                      // [2][kTab]
+  T* Ut = reinterpret_cast<T*>(smem_raw);   // [2][kTab][2 RW]
+  T* Vt = Ut + 2 * kTab * 2 * RW;
+  T* Et = Vt + 2 * kTab * 2 * RW;
+  T* dq = Et + 2 * kTab * 2 * RW;            // [2][2 RW]: V - q of a step's rows
+  T* Yt = dq + 4 * RW;                       // [2][kTab]
   T* S2t = Yt + 2 * kTab;
   T* red = S2t + 2 * kTab;                   // [2][warps][2]
-  T* ring = red + 4 * kSplitMaxWarps;        // [kTab][2]: D, zp
+  T* ring = red + 4 * MW;                    // [kTab][2]: D, zp
   T* Tst = ring + 2 * kTab;                  // K3's checkpoint staging [3][J][J + 1]
-  const bool staged = Aug && p.kc >= 2;      // (kc 1: a step's rows straight to the table)
-  for (int e = tid; e < 2 * kTab * 6 * CPT + 4 * CPT; e += blockDim.x) Ut[e] = T(0);
+  // (kc 1, or past the registers where it does not fit: a step's rows
+  // straight to the table)
+  const bool staged = Aug && p.kc >= 2 && (!Tail || p.stage);
+  // past the registers, columns [CPT, RW) of each thread's row segment:
+  // vector k at ((k - CPT) / V * nts + tid) V, in shared memory after the
+  // staging or in the device scratch p.state
+  const int nts = blockDim.x;
+  const long long tail_len = static_cast<long long>(nts) * (RW - CPT);
+  T* St = nullptr;
+  if (Tail) {
+    St = p.state ? p.state + chain * tail_len
+                 : Ut + tail_fwd_off(RW, staged ? J : 0);
+  }
+  for (int e = tid; e < 2 * kTab * 6 * RW + 4 * RW; e += blockDim.x) Ut[e] = T(0);
   __syncthreads();  // the padding is zero before any row is written
 
   const T* t = p.t;
@@ -959,25 +461,25 @@ split_fwd_kernel(const FwdArgs<T> p) {
     for (int q = 0; q < 2; ++q) {
       const int s = q0 + 4 * q, m = blk * kTab + s;
       if (pt && m < N) {
-        T* u = Ut + (b + s) * 2 * CPT;
-        T* v = Vt + (b + s) * 2 * CPT;
-        T* e = Et + (b + s) * 2 * CPT;
+        T* u = Ut + (b + s) * 2 * RW;
+        T* v = Vt + (b + s) * 2 * RW;
+        T* e = Et + (b + s) * 2 * RW;
         if (G == kTables) {
           u[ti] = x[q][0];
-          u[CPT + ti] = x[q][1];
+          u[RW + ti] = x[q][1];
           v[ti] = x[q][2];
-          v[CPT + ti] = x[q][3];
+          v[RW + ti] = x[q][3];
           e[ti] = x[q][4];
-          e[CPT + ti] = x[q][5];
+          e[RW + ti] = x[q][5];
         } else {
           const T dtm = (Carry || dt != nullptr || m == 0) ? x[q][1] : x[q][0] - x[q][1];
           T si, co;
           Ops<T>::sincos_(td * x[q][0], &si, &co);
           u[ti] = ta * co + tb * si;
-          u[CPT + ti] = ta * si - tb * co;
+          u[RW + ti] = ta * si - tb * co;
           v[ti] = co;
-          v[CPT + ti] = si;
-          e[ti] = e[CPT + ti] = Ops<T>::exp_(-(tc * dtm));
+          v[RW + ti] = si;
+          e[ti] = e[RW + ti] = Ops<T>::exp_(-(tc * dtm));
         }
         if (ti == 0) {
           Yt[b + s] = x[q][6];
@@ -1040,11 +542,26 @@ split_fwd_kernel(const FwdArgs<T> p) {
     }
     S[k] = v;
   }
+  if (Tail) {
+    for (int k = CPT; k < RW; k += V) {
+      T v[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int c = k + e;
+        v[e] = T(0);
+        if (Carry && act && c < J) {
+          v[e] = (h == 1 && hl == 0) ? cin[JJ + static_cast<long long>(c) * J + i]
+                                     : cin[(h + hl) * JJ + static_cast<long long>(i) * J + c];
+        }
+      }
+      vstore(St + ((k - CPT) / V * nts + tid) * V, v);
+    }
+  }
   T f = (Carry && act) ? cin[3 * JJ + R + r] : T(0);
   T Dp = Carry ? cin[3 * JJ + 2 * R] : T(0);
   T zpp = Carry ? cin[3 * JJ + 2 * R + 1] : T(0);
   T rDp = T(1);  // W of step n - 1 is its V - q times rDp: a carry's W as it is
-  if (act && hl == 0) dq[2 * CPT + own] = Carry ? cin[3 * JJ + r] : T(0);
+  if (act && hl == 0) dq[2 * RW + own] = Carry ? cin[3 * JJ + r] : T(0);
   load_raw(0);
   write_table(0);
   load_raw(1);
@@ -1074,19 +591,19 @@ split_fwd_kernel(const FwdArgs<T> p) {
       load_raw(blk + 2);
     }
     PROBE(pf, 0)
-    const T* Un = Ut + sb * 2 * CPT;
-    const T* En = Et + sb * 2 * CPT;
-    const T* dqp = dq + ((n + 1) & 1) * 2 * CPT;
+    const T* Un = Ut + sb * 2 * RW;
+    const T* En = Et + sb * 2 * RW;
+    const T* dqp = dq + ((n + 1) & 1) * 2 * RW;
     T q = T(0), Ur = T(0), Vr = T(0), Er = T(0), Wr = T(0);
     if (act) {
       Ur = Un[own];
-      Vr = Vt[sb * 2 * CPT + own];
+      Vr = Vt[sb * 2 * RW + own];
       Er = En[own];
       Wr = dqp[own] * rDp;
       const T wd = Wr * Dp;
-      const T* dqc = dqp + hl * CPT;
-      const T* uc = Un + hl * CPT;
-      const T* ec = En + hl * CPT;
+      const T* dqc = dqp + hl * RW;
+      const T* uc = Un + hl * RW;
+      const T* ec = En + hl * RW;
       // K3: every kc steps this step's T row segments go to the checkpoint
       // (T00 and T01 from rows r < J, T11 from rows r >= J; T10 = T01^T is
       // not kept), through the staging, which the block copies out whole
@@ -1118,6 +635,30 @@ split_fwd_kernel(const FwdArgs<T> p) {
             }
           }
         }
+        if (Tail) {  // the columns past the registers, a vector at a time
+          for (int k = CPT; k < RW; k += V) {
+            T* sp = St + ((k - CPT) / V * nts + tid) * V;
+            T sv[V], dv[V], uv[V], ev[V];
+            vload(sp, sv);
+            vload(dqc + k, dv);
+            vload(uc + k, uv);
+            vload(ec + k, ev);
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              const T Tv = sv[e] + wd * (dv[e] * rDp);
+              if (decltype(ckpt)::value) {
+                if (k + e < J) tile[k + e] = Tv;
+              }
+              sv[e] = (Er * ev[e]) * Tv;
+              if ((k / V) & 1) {
+                q1s += sv[e] * uv[e];
+              } else {
+                q0s += sv[e] * uv[e];
+              }
+            }
+            vstore(sp, sv);
+          }
+        }
       };
       if (tile != nullptr) {
         cols(std::true_type{});
@@ -1134,7 +675,7 @@ split_fwd_kernel(const FwdArgs<T> p) {
       f = Er * pre;
       dqn = Vr - qo;
       if (hl == 0) {
-        dq[(n & 1) * 2 * CPT + own] = dqn;
+        dq[(n & 1) * 2 * RW + own] = dqn;
         s0v = Ur * qo;
         s1v = Ur * f;
       }
@@ -1144,7 +685,7 @@ split_fwd_kernel(const FwdArgs<T> p) {
       s0v += __shfl_xor_sync(kFull, s0v, off);
       s1v += __shfl_xor_sync(kFull, s1v, off);
     }
-    T* rb = red + (n & 1) * 2 * kSplitMaxWarps;
+    T* rb = red + (n & 1) * 2 * MW;
     if (lane == 0) {
       rb[2 * warp] = s0v;
       rb[2 * warp + 1] = s1v;
@@ -1200,6 +741,11 @@ split_fwd_kernel(const FwdArgs<T> p) {
       for (int k = 0; k < CPT; ++k) {
         if (k < J) co[(h + hl) * JJ + static_cast<long long>(i) * J + k] = S[k];
       }
+      if (Tail) {
+        for (int k = CPT; k < J; ++k)
+          co[(h + hl) * JJ + static_cast<long long>(i) * J + k] =
+              St[((k - CPT) / V * nts + tid) * V + (k - CPT) % V];
+      }
     }
     if (act && hl == 0) {
       co[3 * JJ + r] = Wl;
@@ -1233,9 +779,14 @@ split_fwd_kernel(const FwdArgs<T> p) {
 // rule of a sub-chunk's steps runs at its end, from rows kept per step.
 // The residual rows of up to kTab steps (a window of the chunk) are
 // loaded, and sincos and exp taken, once for all the sub-chunks.
-template <typename T, int CPT, bool PerLaneT, bool Carry>
-__global__ void __launch_bounds__(4 * CPT, (split_min_blocks<T, CPT, true>()))
+template <typename T, int CPT, bool PerLaneT, bool Carry, bool Tail = false>
+__global__ void __launch_bounds__(Tail ? kTailMaxThreads : 4 * CPT,
+                                  (Tail ? 1 : split_min_blocks<T, CPT, true>()))
 split_bwd_kernel(const BwdArgs<T> p) {
+  constexpr int MW = Tail ? kTailMaxWarps : kSplitMaxWarps;
+  // a row half of the per-step rows, and a thread's columns in a slot: CPT,
+  // or past the registers p.cw
+  const int RW = Tail ? p.cw : CPT;
   constexpr int V = Vec<T>::n;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int chain = blockIdx.x, tid = threadIdx.x, nts = blockDim.x;
@@ -1244,7 +795,7 @@ split_bwd_kernel(const BwdArgs<T> p) {
   const bool act = r < R;
   const int h = (act && r >= J) ? 1 : 0;
   const int i = act ? r - h * J : 0;
-  const int own = h * CPT + i;
+  const int own = h * RW + i;
   const int lane = tid & 31, warp = tid >> 5, nw = nts >> 5;
   const bool pt = tid < 4 * J;  // a term's thread: term ti of steps q0, q0 + 4, ...
   const int ti = pt ? tid % J : 0, q0 = pt ? tid / J : 0;
@@ -1286,23 +837,35 @@ split_bwd_kernel(const BwdArgs<T> p) {
     td = p.d[o];
   }
 
-  T* Ww = reinterpret_cast<T*>(smem_raw);  // the window: [kTab][2 CPT] rows
-  T* Uw = Ww + kTab * 2 * CPT;
-  T* Pw = Uw + kTab * 2 * CPT;
-  T* Ew = Pw + kTab * 2 * CPT;              // [kTab][CPT] by term
-  T* Cw = Ew + kTab * CPT;
-  T* Sw = Cw + kTab * CPT;
-  T* Vb = Sw + kTab * CPT;                  // [2][2 CPT]: V-bar of a step's rows
-  T* X = Vb + 4 * CPT;                      // [ks][3][2 CPT]: U-bar, V-bar, ec part
-  T* TT = X + ks * 6 * CPT;                 // [ks][2][CPT]: t-bar, dt-bar terms
-  T* red = TT + ks * 2 * CPT;               // [2][warps][4]
-  T* Dw = red + 8 * kSplitMaxWarps;         // [kTab] each: D, zp, t, dt
+  T* Ww = reinterpret_cast<T*>(smem_raw);  // the window: [kTab][2 RW] rows
+  T* Uw = Ww + kTab * 2 * RW;
+  T* Pw = Uw + kTab * 2 * RW;
+  T* Ew = Pw + kTab * 2 * RW;              // [kTab][RW] by term
+  T* Cw = Ew + kTab * RW;
+  T* Sw = Cw + kTab * RW;
+  T* Vb = Sw + kTab * RW;                  // [2][2 RW]: V-bar of a step's rows
+  T* X = Vb + 4 * RW;                      // [ks][3][2 RW]: U-bar, V-bar, ec part
+  T* TT = X + ks * 6 * RW;                 // [ks][2][RW]: t-bar, dt-bar terms
+  T* red = TT + ks * 2 * RW;               // [2][warps][4]
+  T* Dw = red + 8 * MW;         // [kTab] each: D, zp, t, dt
   T* Zw = Dw + kTab;
   T* Tw = Zw + kTab;
   T* DTw = Tw + kTab;
-  const long long slot_len = static_cast<long long>(nts) * CPT;
-  T* chunk = DTw + kTab;                    // [ks] slots of slot_len
-  for (int e = tid; e < kTab * 9 * CPT + 4 * CPT; e += nts) Ww[e] = T(0);
+  const long long slot_len = static_cast<long long>(nts) * RW;
+  // [ks] slots of slot_len, in shared memory or (past the registers where
+  // they do not fit) the device scratch p.chunk
+  const bool slots_smem = !Tail || p.chunk == nullptr;
+  T* chunk = slots_smem ? DTw + kTab : p.chunk + chain * ks * slot_len;
+  // past the registers, columns [CPT, RW) of each thread's row of G: vector
+  // k at ((k - CPT) / V * nts + tid) V, in shared memory after the slots or
+  // in the device scratch p.carry
+  const long long tail_len = static_cast<long long>(nts) * (RW - CPT);
+  T* Gt = nullptr;
+  if (Tail) {
+    Gt = p.carry ? p.carry + chain * tail_len
+                 : DTw + kTab + (slots_smem ? ks * slot_len : 0);
+  }
+  for (int e = tid; e < kTab * 9 * RW + 4 * RW; e += nts) Ww[e] = T(0);
 
   // G: own columns of row r; an adjoint carry holds P00, M01 and P11
   // row-major (M10 = M01^T)
@@ -1316,6 +879,21 @@ split_bwd_kernel(const BwdArgs<T> p) {
                               : ain[(h + hl) * JJ + static_cast<long long>(i) * J + k];
     }
     G[k] = v;
+  }
+  if (Tail) {
+    for (int k = CPT; k < RW; k += V) {
+      T v[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int c = k + e;
+        v[e] = T(0);
+        if (Carry && act && c < J) {
+          v[e] = (h == 1 && hl == 0) ? ain[JJ + static_cast<long long>(c) * J + i]
+                                     : ain[(h + hl) * JJ + static_cast<long long>(i) * J + c];
+        }
+      }
+      vstore(Gt + ((k - CPT) / V * nts + tid) * V, v);
+    }
   }
   T cp = (Carry && act) ? ain[3 * JJ + r] : T(0);  // deferred cotangent of pre_{m+1}, row r
   T ab = T(0), bb = T(0), cb = T(0), db = T(0), sumabar = T(0);
@@ -1332,8 +910,14 @@ split_bwd_kernel(const BwdArgs<T> p) {
   auto stage_ck = [&](const T* src, T* slot) {
     if (!act) return;
 #pragma unroll
-    for (int k = 0; k < CPT; k += V) {
+    for (int k = 0; k < RW; k += V) {
       T* d = slot + (static_cast<long long>(k / V) * nts + tid) * V;
+      if (!slots_smem) {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          d[e] = k + e < J ? src[static_cast<long long>(k + e) * ck_str] : T(0);
+        continue;
+      }
       if (ck_vec && k < J) {
         cp_async_vec(d, src + k);
         continue;
@@ -1358,16 +942,16 @@ split_bwd_kernel(const BwdArgs<T> p) {
         const T tm = t[m], dtm = step_dt(m);
         T si, co;
         Ops<T>::sincos_(td * tm, &si, &co);
-        Ew[s * CPT + ti] = Ops<T>::exp_(-(tc * dtm));
-        Cw[s * CPT + ti] = co;
-        Sw[s * CPT + ti] = si;
-        Uw[s * 2 * CPT + ti] = ta * co + tb * si;
-        Uw[s * 2 * CPT + CPT + ti] = ta * si - tb * co;
+        Ew[s * RW + ti] = Ops<T>::exp_(-(tc * dtm));
+        Cw[s * RW + ti] = co;
+        Sw[s * RW + ti] = si;
+        Uw[s * 2 * RW + ti] = ta * co + tb * si;
+        Uw[s * 2 * RW + RW + ti] = ta * si - tb * co;
         const long long o = (cN + m) * J + ti;
-        Ww[s * 2 * CPT + ti] = p.W0t[o];
-        Ww[s * 2 * CPT + CPT + ti] = p.W1t[o];
-        Pw[s * 2 * CPT + ti] = p.P0t[o];
-        Pw[s * 2 * CPT + CPT + ti] = p.P1t[o];
+        Ww[s * 2 * RW + ti] = p.W0t[o];
+        Ww[s * 2 * RW + RW + ti] = p.W1t[o];
+        Pw[s * 2 * RW + ti] = p.P0t[o];
+        Pw[s * 2 * RW + RW + ti] = p.P1t[o];
         if (ti == 0) {
           Dw[s] = p.Dt[cN + m];
           Zw[s] = p.ZPt[cN + m];
@@ -1404,20 +988,44 @@ split_bwd_kernel(const BwdArgs<T> p) {
       // last sub-chunk (or the kernel's start), while the window's rows load.
       need(base);
       cp_async_wait_all();
-      for (int m = base; m < s1 - 1; ++m) {
+      // Past the registers, a chunk inside one window: each vector of a
+      // thread's row segment is read once from slot 0 and carried through
+      // the chunk's steps in registers, each slot written once (the same
+      // statement a step as below), so the slots' traffic is one read and
+      // ks - 1 writes a chunk instead of a read and a write a step
+      const bool fused = Tail && len <= kTab;
+      if (fused && act) {
+        for (int k = 0; k < RW; k += V) {
+          const long long o = (static_cast<long long>(k / V) * nts + tid) * V;
+          T v[V];
+          vload(chunk + o, v);
+          for (int m = base; m < s1 - 1; ++m) {
+            const int w = m - win;
+            const T Er = Ew[w * RW + i];
+            const T wd = Ww[w * 2 * RW + own] * Dw[w];
+            T e4[V], w4[V];
+            vload(Ew + w * RW + k, e4);
+            vload(Ww + w * 2 * RW + hl * RW + k, w4);
+#pragma unroll
+            for (int e = 0; e < V; ++e) v[e] = (Er * e4[e]) * v[e] + wd * w4[e];
+            if (m + 1 >= s0) vstore(chunk + (m + 1 - s0) * slot_len + o, v);
+          }
+        }
+      }
+      for (int m = base; m < (fused ? base : s1 - 1); ++m) {
         need(m);
         PROBE(pb, 0)
         const int w = m - win;
         T* src = chunk + (m >= s0 ? m - s0 : 0) * slot_len;
         T* dst = chunk + (m + 1 >= s0 ? m + 1 - s0 : 0) * slot_len;
         if (act) {
-          const T Er = Ew[w * CPT + i];
-          const T wd = Ww[w * 2 * CPT + own] * Dw[w];
-          const T* ec = Ew + w * CPT;
-          const T* wc = Ww + w * 2 * CPT + hl * CPT;
+          const T Er = Ew[w * RW + i];
+          const T wd = Ww[w * 2 * RW + own] * Dw[w];
+          const T* ec = Ew + w * RW;
+          const T* wc = Ww + w * 2 * RW + hl * RW;
           // vector by vector: src and dst may be one slot
 #pragma unroll
-          for (int k = 0; k < CPT; k += V) {
+          for (int k = 0; k < RW; k += V) {
             const long long o = (static_cast<long long>(k / V) * nts + tid) * V;
             T v[V], e4[V], w4[V];
             vload(src + o, v);
@@ -1441,13 +1049,13 @@ split_bwd_kernel(const BwdArgs<T> p) {
         T Wr = T(0), pre = T(0), Ur = T(0), Er = T(0), Vr = T(0);
         T part = T(0);
         if (act) {
-          Wr = Ww[w * 2 * CPT + own];
-          pre = Pw[w * 2 * CPT + own];
-          Ur = Uw[w * 2 * CPT + own];
-          Er = Ew[w * CPT + i];
-          Vr = h ? Sw[w * CPT + i] : Cw[w * CPT + i];
+          Wr = Ww[w * 2 * RW + own];
+          pre = Pw[w * 2 * RW + own];
+          Ur = Uw[w * 2 * RW + own];
+          Er = Ew[w * RW + i];
+          Vr = h ? Sw[w * RW + i] : Cw[w * RW + i];
           // G's row times W_m: this half's columns
-          const T* wc = Ww + w * 2 * CPT + hl * CPT;
+          const T* wc = Ww + w * 2 * RW + hl * RW;
           T p0 = T(0), p1 = T(0);
 #pragma unroll
           for (int k = 0; k < CPT; k += V) {
@@ -1459,6 +1067,21 @@ split_bwd_kernel(const BwdArgs<T> p) {
                 p1 += G[k + e] * w4[e];
               } else {
                 p0 += G[k + e] * w4[e];
+              }
+            }
+          }
+          if (Tail) {
+            for (int k = CPT; k < RW; k += V) {
+              T w4[V], g4[V];
+              vload(wc + k, w4);
+              vload(Gt + ((k - CPT) / V * nts + tid) * V, g4);
+#pragma unroll
+              for (int e = 0; e < V; ++e) {
+                if ((k / V) & 1) {
+                  p1 += g4[e] * w4[e];
+                } else {
+                  p0 += g4[e] * w4[e];
+                }
               }
             }
           }
@@ -1475,9 +1098,9 @@ split_bwd_kernel(const BwdArgs<T> p) {
         const T Wbar = (diag + off) * Dm + cp * zpm;
         const T Vbar = Wbar * rD;
         T sums[3] = {T(0), T(0), T(0)};
-        T* rb = red + (m & 1) * 4 * kSplitMaxWarps;
+        T* rb = red + (m & 1) * 4 * MW;
         if (act && hl == 0) {
-          Vb[(m & 1) * 2 * CPT + own] = Vbar;
+          Vb[(m & 1) * 2 * RW + own] = Vbar;
           sums[0] = h ? T(0.5) * Wr * diag : Wr * (T(0.5) * diag + off);  // Dbar
           sums[1] = cp * Wr;                                                 // zpbar (pre_{m+1})
           sums[2] = Wbar * Wr;                                               // sum(Wbar o W)
@@ -1533,9 +1156,9 @@ split_bwd_kernel(const BwdArgs<T> p) {
         T uacc = T(0), eacc = T(0);
         if (act) {
           const T* Tm = chunk + sl * slot_len;
-          const T* vbc = Vb + (m & 1) * 2 * CPT + hl * CPT;
-          const T* uc = Uw + w * 2 * CPT + hl * CPT;
-          const T* ec = Ew + w * CPT;
+          const T* vbc = Vb + (m & 1) * 2 * RW + hl * RW;
+          const T* uc = Uw + w * 2 * RW + hl * RW;
+          const T* ec = Ew + w * RW;
 #pragma unroll
           for (int k = 0; k < CPT; k += V) {
             T tv[V], vb[V], u4[V], e4[V];
@@ -1553,14 +1176,46 @@ split_bwd_kernel(const BwdArgs<T> p) {
               G[k + e] = ee * Q;
             }
           }
+          if (Tail) {  // two partial sums a cotangent by vector parity, as q's
+            T u0 = T(0), u1 = T(0), e0 = T(0), e1 = T(0);
+            for (int k = CPT; k < RW; k += V) {
+              T* gp = Gt + ((k - CPT) / V * nts + tid) * V;
+              T tv[V], vb[V], u4[V], e4[V], g4[V];
+              vload(Tm + (static_cast<long long>(k / V) * nts + tid) * V, tv);
+              vload(vbc + k, vb);
+              vload(uc + k, u4);
+              vload(ec + k, e4);
+              vload(gp, g4);
+              T uk = T(0), ek = T(0);
+#pragma unroll
+              for (int e = 0; e < V; ++e) {
+                const T qc = -vb[e] - Dbar * u4[e];
+                const T ee = Er * e4[e];
+                const T Q = g4[e] + qbar * u4[e] + Ur * qc;
+                uk += ee * tv[e] * qc;
+                ek += Q * tv[e] * e4[e];
+                g4[e] = ee * Q;
+              }
+              if ((k / V) & 1) {
+                u1 += uk;
+                e1 += ek;
+              } else {
+                u0 += uk;
+                e0 += ek;
+              }
+              vstore(gp, g4);
+            }
+            uacc += u0 + u1;
+            eacc += e0 + e1;
+          }
         }
         uacc += __shfl_xor_sync(kFull, uacc, 1);
         eacc += __shfl_xor_sync(kFull, eacc, 1);
         if (act && hl == 0) {
-          T* xs = X + sl * 6 * CPT;
+          T* xs = X + sl * 6 * RW;
           xs[own] = Ubar + uacc;
-          xs[2 * CPT + own] = Vbar;
-          xs[4 * CPT + own] = ecpart + eacc;
+          xs[2 * RW + own] = Vbar;
+          xs[4 * RW + own] = ecpart + eacc;
         }
         PROBE(pb, 6)
       }
@@ -1577,11 +1232,11 @@ split_bwd_kernel(const BwdArgs<T> p) {
       if (pt) {
         for (int s = q0; s < nsub; s += 4) {
           const int w = s0 + s - win;
-          const T* xs = X + s * 6 * CPT;
-          const T U0bar = xs[ti], U1bar = xs[CPT + ti];
-          T cobar = xs[2 * CPT + ti], sibar = xs[3 * CPT + ti];
-          const T ecbar = xs[4 * CPT + ti] + xs[5 * CPT + ti];
-          const T co = Cw[w * CPT + ti], si = Sw[w * CPT + ti], Er = Ew[w * CPT + ti];
+          const T* xs = X + s * 6 * RW;
+          const T U0bar = xs[ti], U1bar = xs[RW + ti];
+          T cobar = xs[2 * RW + ti], sibar = xs[3 * RW + ti];
+          const T ecbar = xs[4 * RW + ti] + xs[5 * RW + ti];
+          const T co = Cw[w * RW + ti], si = Sw[w * RW + ti], Er = Ew[w * RW + ti];
           ab += U0bar * co + U1bar * si;
           bb += U0bar * si - U1bar * co;
           cobar += U0bar * ta - U1bar * tb;
@@ -1589,16 +1244,16 @@ split_bwd_kernel(const BwdArgs<T> p) {
           const T dchain = -cobar * si + sibar * co;
           db += Tw[w] * dchain;
           cb -= DTw[w] * ecbar * Er;
-          TT[s * 2 * CPT + ti] = td * dchain;
-          TT[s * 2 * CPT + CPT + ti] = -(tc * ecbar * Er);
+          TT[s * 2 * RW + ti] = td * dchain;
+          TT[s * 2 * RW + RW + ti] = -(tc * ecbar * Er);
         }
       }
       __syncthreads();  // the terms
       for (int s = warp; s < nsub; s += nw) {
         T v0 = T(0), v1 = T(0);
         for (int e = lane; e < J; e += 32) {
-          v0 += TT[s * 2 * CPT + e];
-          v1 += TT[s * 2 * CPT + CPT + e];
+          v0 += TT[s * 2 * RW + e];
+          v1 += TT[s * 2 * RW + RW + e];
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) {
@@ -1640,6 +1295,11 @@ split_bwd_kernel(const BwdArgs<T> p) {
       for (int k = 0; k < CPT; ++k) {
         if (k < J) ao[(h + hl) * JJ + static_cast<long long>(i) * J + k] = G[k];
       }
+      if (Tail) {
+        for (int k = CPT; k < J; ++k)
+          ao[(h + hl) * JJ + static_cast<long long>(i) * J + k] =
+              Gt[((k - CPT) / V * nts + tid) * V + (k - CPT) % V];
+      }
     }
     if (hl == 0) ao[3 * JJ + r] = cp;
   }
@@ -1652,8 +1312,13 @@ split_bwd_kernel(const BwdArgs<T> p) {
 // The register design's instantiations: CPT, the columns a thread holds,
 // for J <= CPT. Past 64 a row segment and its loads no longer fit the
 // registers of a block of 4 J threads (at CPT = 100 float32 spilled 2 KB
-// a thread, and its K4 ran slower than one thread a row).
+// a thread): there `cpt` is the row half's width cw (J rounded up to 4),
+// the first tail_rc columns of a thread's segment in registers, the rest
+// in shared memory or the scratch (Tail).
 constexpr bool split_has(int cpt) { return cpt == 40 || cpt == 64; }
+constexpr bool tail_has(int J, int cpt) {
+  return J > 64 && J <= cpt && cpt <= kMaxTerms && cpt % 4 == 0;
+}
 
 template <typename T, int CPT, int G, bool Aug, bool Carry>
 int launch_split_fwd(const FwdArgs<T>& p, cudaStream_t stream) {
@@ -1668,26 +1333,39 @@ int launch_split_fwd(const FwdArgs<T>& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// cpt 0: one thread a row, the state in shared memory or p.state;
-// otherwise the register design at that CPT (p.state null)
+// Past the registers: the tail in shared memory unless p.state holds it;
+// K3 stages its checkpoints where the staging fits beside the rest.
+template <typename T, int G, bool Aug, bool Carry>
+int launch_tail_fwd(FwdArgs<T> p, cudaStream_t stream) {
+  constexpr int RC = tail_rc<T, false>();
+  const long long item = sizeof(T);
+  const long long tail =
+      p.state ? 0 : static_cast<long long>(split_threads(p.J)) * (p.cw - RC);
+  p.stage = Aug && p.kc >= 2 && (tail_fwd_off(p.cw, p.J) + tail) * item <= kSmemBytes;
+  const long long smem = (tail_fwd_off(p.cw, p.stage ? p.J : 0) + tail) * item;
+  if (smem > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = split_fwd_kernel<T, RC, G, Aug, Carry, true>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<p.B, split_threads(p.J), static_cast<size_t>(smem), stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cpt 40 or 64: the register design (p.state null); past 64 terms cpt is
+// the row half's width cw (Tail)
 template <typename T, int G, bool Aug, bool Carry = false>
-int launch_fwd(const FwdArgs<T>& p, int cpt, cudaStream_t stream) {
+int launch_fwd(FwdArgs<T> p, int cpt, cudaStream_t stream) {
   if (p.J < 1 || p.J > kMaxTerms || (G == kPerLane && p.n_valid == nullptr) ||
       (Aug && p.kc < 1) ||
       (Carry && (p.dt == nullptr || p.cin == nullptr || p.cout == nullptr || p.parts == nullptr)) ||
-      (cpt != 0 && (!split_has(cpt) || p.J > cpt || p.state != nullptr)))
+      !((split_has(cpt) && p.J <= cpt && p.state == nullptr) || tail_has(p.J, cpt)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.B <= 0 || p.N <= 0) return static_cast<int>(cudaSuccess);
   if (cpt == 40) return launch_split_fwd<T, 40, G, Aug, Carry>(p, stream);
   if (cpt == 64) return launch_split_fwd<T, 64, G, Aug, Carry>(p, stream);
-  const long long smem = fwd_smem_len(p.J, p.state == nullptr) * static_cast<long long>(sizeof(T));
-  if (smem > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = wide_fwd_kernel<T, G, Aug, Carry>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<p.B, threads_of(p.J), static_cast<size_t>(smem), stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.cw = cpt;
+  return launch_tail_fwd<T, G, Aug, Carry>(p, stream);
 }
 
 template <typename T, int CPT, bool PerLaneT, bool Carry>
@@ -1704,30 +1382,41 @@ int launch_split_bwd(const BwdArgs<T>& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// cpt 0: one thread a row, G and the T chunk in shared memory or in
-// p.carry / p.chunk, ks <= 8; otherwise the register design at that CPT
-// (p.carry and p.chunk null: G in registers, the chunk's slots in shared
-// memory), ks <= min(kc, kTab), and ks divides kTab where kc > kTab
+// Past the registers: the ks slots in shared memory unless p.chunk holds
+// them, then G's tail unless p.carry holds it.
+template <typename T, bool PerLaneT, bool Carry>
+int launch_tail_bwd(const BwdArgs<T>& p, cudaStream_t stream) {
+  constexpr int RC = tail_rc<T, true>();
+  const long long nts = split_threads(p.J);
+  const long long smem = (tail_bwd_len(p.cw, p.ks) + (p.chunk ? 0 : p.ks * nts * p.cw) +
+                          (p.carry ? 0 : nts * (p.cw - RC))) *
+                         static_cast<long long>(sizeof(T));
+  if (smem > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = split_bwd_kernel<T, RC, PerLaneT, Carry, true>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<p.B, static_cast<int>(nts), static_cast<size_t>(smem), stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cpt 40 or 64: the register design (p.carry and p.chunk null: G in
+// registers, the chunk's slots in shared memory); past 64 terms cpt is the
+// row half's width cw (Tail). ks <= min(kc, kTab), and ks divides kTab
+// where kc > kTab.
 template <typename T, bool PerLaneT, bool Carry = false>
-int launch_bwd(const BwdArgs<T>& p, int cpt, cudaStream_t stream) {
-  if (p.J < 1 || p.J > kMaxTerms || p.kc < 1 || p.ks < 1 || p.ks > p.kc || p.ks > kMaxSub ||
-      (PerLaneT && p.n_valid == nullptr) ||
+int launch_bwd(BwdArgs<T> p, int cpt, cudaStream_t stream) {
+  if (p.J < 1 || p.J > kMaxTerms || p.kc < 1 || p.ks < 1 || p.ks > p.kc || p.ks > kTab ||
+      (p.kc > kTab && kTab % p.ks != 0) || (PerLaneT && p.n_valid == nullptr) ||
       (Carry && (p.dt == nullptr || p.ain == nullptr || p.aout == nullptr)) ||
-      (cpt != 0 && (!split_has(cpt) || p.J > cpt || p.carry != nullptr || p.chunk != nullptr ||
-                    (p.kc > kTab && kTab % p.ks != 0))))
+      !((split_has(cpt) && p.J <= cpt && p.carry == nullptr && p.chunk == nullptr) ||
+        tail_has(p.J, cpt)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.B <= 0 || p.N <= 0) return static_cast<int>(cudaSuccess);
   if (cpt == 40) return launch_split_bwd<T, 40, PerLaneT, Carry>(p, stream);
   if (cpt == 64) return launch_split_bwd<T, 64, PerLaneT, Carry>(p, stream);
-  const long long smem = bwd_smem_len(p.J, p.ks, p.carry == nullptr, p.chunk == nullptr) *
-                         static_cast<long long>(sizeof(T));
-  if (smem > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = wide_bwd_kernel<T, PerLaneT, Carry>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<p.B, threads_of(p.J), static_cast<size_t>(smem), stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.cw = cpt;
+  return launch_tail_bwd<T, PerLaneT, Carry>(p, stream);
 }
 
 template <typename T>

@@ -39,8 +39,9 @@ kernel ``_kernel`` (K0, launched by ``batched_loglike_pallas``) becomes
 Past ``NARROW_TERMS`` = 32 terms the kernels' wide forms run instead,
 from ``csrc/celerite_wide.cu``: one thread block a chain, up to
 ``MAX_TERMS`` terms, in the design ``cuda_celerite_vjp.wide_shape`` picks
-(two threads a row of the 2J x 2J state in registers, or one thread a
-row past the J where that no longer fits).
+(two threads a row of the 2J x 2J state in registers; past 64 terms
+the part of a thread's row that the registers do not hold in shared
+memory or a device scratch).
 
 ``LAUNCHES`` (K1), ``MULTI_LAUNCHES`` (K2) and ``TABLES_LAUNCHES`` (K0)
 count kernel launches, so a run can show that its main path went through
@@ -460,7 +461,7 @@ def _check_tables(U, V, phi, y, sigma2, suma):
     if R // 2 > MAX_TERMS:
         raise ValueError(
             f"the CUDA celerite kernels take at most {MAX_TERMS} terms "
-            f"(one thread a row of the 2J x 2J state), got J={R // 2}")
+            f"(two threads a row of the 2J x 2J state), got J={R // 2}")
     if U.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"float32 or float64 expected, got {U.dtype}")
     for name, x, shape in (("V", V, (N, R, B)), ("phi", phi, (N, R, B)), ("y", y, (B, N)),

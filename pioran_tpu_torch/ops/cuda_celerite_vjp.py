@@ -29,8 +29,9 @@ CUDA tensors go to the kernels, or raise; CPU tensors go to
 Past ``NARROW_TERMS`` = 32 terms (one warp lane a term) the wrappers
 launch the wide forms of K3 and K4 in ``csrc/celerite_wide.cu`` instead,
 one thread block a chain, up to ``MAX_TERMS``: two threads a row of the
-2J x 2J state, held in registers, up to J = 64, one thread a row past
-that (:func:`wide_shape`); that library
+2J x 2J state, held in registers up to J = 64, past that the first
+``TAIL_RC`` columns of a thread's row half in registers and the rest in
+shared memory or a device scratch (:func:`wide_shape`); that library
 also holds the wide K1, K2 and K0, which ``ops/cuda_celerite.py``
 launches. The residual tables are the same for both forms.
 
@@ -84,15 +85,18 @@ __all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "fwd_aug_carry", "bwd
 _LOG2PI = math.log(2.0 * math.pi)
 
 NARROW_TERMS = 32  # the warp-per-chain kernels: one warp lane per celerite term
-MAX_TERMS = 128    # the wide kernels: one thread per row of the 2J x 2J state
+MAX_TERMS = 128    # the wide kernels: two threads per row of the 2J x 2J state
 KC = 8             # steps between T checkpoints
 WIDE_TAB = 8       # the wide kernels: steps a table of residual rows holds; K4's ks at most
 WIDE_CPT = (40, 64)  # the wide kernels' register design: columns a thread
 SMEM_BYTES = 232_448  # shared memory one block may use on the H100 (sm_90)
 SM_SMEM_BYTES = 233_472  # shared memory of an SM, 1 KB of it reserved a block
 H100_SMS = 132
-_WIDE_WARPS = 2 * MAX_TERMS // 32
 _SPLIT_WARPS = (4 * WIDE_CPT[-1] + 31) // 32  # the register design's largest block, in warps
+_TAIL_WARPS = 4 * MAX_TERMS // 32  # past the registers: the largest block, in warps
+# past the registers: columns of a thread's row segment held in registers,
+# by (bytes a value, K4); the rest, the tail, in shared memory or a scratch
+TAIL_RC = {(4, False): 64, (4, True): 32, (8, False): 32, (8, True): 16}
 FWD_AUG_LAUNCHES = 0
 BWD_LAUNCHES = 0
 FWD_AUG_MULTI_LAUNCHES = 0
@@ -153,7 +157,7 @@ def check_inputs(a, b, c, d, t, y, sigma2, dt, n_valid=None):
     if J > MAX_TERMS:
         raise ValueError(
             f"the CUDA celerite kernels take at most {MAX_TERMS} terms "
-            f"(one thread a row of the 2J x 2J state), got J={J}")
+            f"(two threads a row of the 2J x 2J state), got J={J}")
     if a.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"float32 or float64 expected, got {a.dtype}")
     dev, dtype = a.device, a.dtype
@@ -257,90 +261,104 @@ class WideShape(NamedTuple):
     """The wide kernels' launch (J > ``NARROW_TERMS``), from
     :func:`wide_shape`."""
 
-    lanes: int          # threads a row of the 2J x 2J state: 2 (registers) or 1
-    cpt: int            # columns a thread holds in registers (0: a row a thread)
-    threads: int        # threads a block
+    cpt: int            # columns a thread holds in registers (40, 64), or past 64 terms cw
+    threads: int        # threads a block: two a row, 4 J rounded up to a warp
     ks: int             # K4's sub-chunk: steps of a chunk's T held at once
     chains: int         # K4's blocks (chains) an SM: shared memory, threads, registers
     fwd_chains: int     # forward blocks an SM: shared memory, threads, registers
     fwd_smem: int       # bytes of shared memory a forward block (K3's, the largest)
     bwd_smem: int       # bytes of shared memory a K4 block
-    fwd_scratch: int    # device scratch values a chain: the forward state S
-    carry_scratch: int  # K4's carry G
-    chunk_scratch: int  # K4's T chunk
+    fwd_scratch: int    # device scratch values a chain: the forward tail
+    carry_scratch: int  # K4's tail of G
+    chunk_scratch: int  # K4's slots
 
 
 def wide_cpt(J: int) -> int:
-    """Columns a thread holds in the register design of the wide kernels,
-    in both dtypes: the smallest of ``WIDE_CPT`` at least J, else 0 (one
-    thread a row). Past 64 a row segment no longer fits the registers of a
-    block of 4 J threads (at 100 columns float32 spilled 2 KB a thread)."""
+    """The wide kernels' ``cpt`` for J terms, in both dtypes: the smallest of
+    ``WIDE_CPT`` at least J (the register design: columns a thread holds
+    in registers), else cw = J rounded up to 4 (past the registers: the
+    width of a row half, a thread's first ``TAIL_RC`` columns in
+    registers). At 100 columns a thread in registers float32 spilled 2 KB
+    a thread."""
     for cpt in WIDE_CPT:
         if J <= cpt:
             return cpt
-    return 0
+    return -(-J // 4) * 4
 
 
 def wide_shape(J: int, dtype: torch.dtype, B: int = 1, kc: int = KC,
                sms: int = H100_SMS) -> WideShape:
     """The wide kernels' launch shape for J terms in ``dtype``: one block a
-    chain, B chains, checkpoints every ``kc`` steps.
+    chain, B chains, checkpoints every ``kc`` steps; two threads a row of
+    the 2J x 2J state (S forward, K4's carry G), each holding a row half.
 
-    Register design (``cpt`` = :func:`wide_cpt` > 0): two threads a row of
-    the 2J x 2J state, each holding ``cpt`` >= J columns of it in registers
-    (S forward, K4's carry G), so nothing of the state is in shared or
-    device memory. The forward kernels' registers are sized for four
-    chains an SM in float32 at cpt = 40, two at 64 (float64: two, one);
-    K3 stages each checkpoint in shared memory (three J x (J + 1) blocks,
-    where kc >= 2) and stores it coalesced. K4's registers are sized for
-    one chain an SM (its column loads at once take about 250 registers;
-    bounded for two chains it spilled and ran slower), and it keeps a
-    thread's own T row segments for ks steps (ks x threads x cpt values)
-    in shared memory, the largest ks that fits (ks = 1 fits every J up to
-    64), so that fewer steps are replayed; ks <= min(kc, 8), and ks
-    divides 8 where kc > 8 (a sub-chunk lies in one 8-step window of
-    residual rows). Past
-    ``wide_cpt`` (J > 64: a row segment no longer fits the registers of a
-    block) the kernels keep one thread a row: S in shared memory where it
-    fits, else the scratch; G likewise; K4's T chunk (ks = min(kc, 8) steps
-    of three J x (J | 1) blocks) in shared memory beside G where that fits
-    and the B chains do not outnumber the ``sms`` SMs, else in the scratch.
-    ``csrc/celerite_wide.cu`` lays shared memory out the same way and
-    refuses a layout that does not fit.
+    Register design (J <= 64, ``cpt`` 40 or 64 from :func:`wide_cpt`):
+    each thread holds its ``cpt`` >= J columns in registers, so nothing of
+    the state is in shared or device memory. The forward kernels'
+    registers are sized for four chains an SM in float32 at cpt = 40, two
+    at 64 (float64: two, one); K3 stages each checkpoint in shared memory
+    (three J x (J + 1) blocks, where kc >= 2) and stores it coalesced. K4's
+    registers are sized for one chain an SM (its column loads at once take
+    about 250 registers; bounded for two chains it spilled and ran slower),
+    and it keeps a thread's own T row segments for ks steps (ks x threads
+    x cpt values) in shared memory, the largest ks that fits (ks = 1 fits
+    every J up to 64), so that fewer steps are replayed; ks <= min(kc, 8),
+    and ks divides 8 where kc > 8 (a sub-chunk lies in one 8-step window
+    of residual rows).
+
+    Past the registers (64 < J <= 128, cpt = cw, J rounded up to 4): the
+    same kernels with rows of 2 cw, a thread's first ``TAIL_RC`` columns in
+    registers and the rest (the tail, threads x (cw - rc) values a chain) in
+    shared memory where it fits, else in the device scratch; one chain an
+    SM (512 threads at J = 128). The forward tail fits in float32 at every
+    J; K3 stages its checkpoints where the staging fits beside it. K4
+    takes ks = the largest allowed (min(kc, 8), dividing 8 where kc > 8),
+    its slots in shared memory where all ks fit beside the rest, else in
+    the scratch; then G's tail in shared memory where it fits, else the
+    scratch. ``csrc/celerite_wide.cu`` lays shared memory out the same way
+    and refuses a layout that does not fit. Every design takes one chain
+    a block, so the shape no longer depends on B and ``sms``, which the
+    signature keeps for its callers.
     """
     item = torch.empty((), dtype=dtype).element_size()
-    R = 2 * J
     cpt = wide_cpt(J)
-    if cpt == 0:
-        fwd_state = item * (3 * R + 2 * _WIDE_WARPS + R * R) <= SMEM_BYTES
-        fwd_smem = item * (3 * R + 2 * _WIDE_WARPS + R * R * fwd_state)
-        ks = min(kc, WIDE_TAB)
-        rows = 7 * R + 3 * _WIDE_WARPS
-        carry, chunk = R * R, 3 * ks * J * (J | 1)
-        carry_smem = item * (rows + carry) <= SMEM_BYTES
-        chunk_smem = B <= sms and item * (rows + carry * carry_smem + chunk) <= SMEM_BYTES
-        smem = item * (rows + carry * carry_smem + chunk * chunk_smem)
-        nts = -(-R // 32) * 32
-        return WideShape(1, 0, nts, ks, min(SM_SMEM_BYTES // (smem + 1024), 2048 // nts),
-                         min(SM_SMEM_BYTES // (fwd_smem + 1024), 2048 // nts), fwd_smem, smem,
-                         0 if fwd_state else R * R, 0 if carry_smem else carry,
-                         0 if chunk_smem else chunk)
     nts = -(-4 * J // 32) * 32
-    slot = nts * cpt
-    fixed = WIDE_TAB * (9 * cpt + 4) + 4 * cpt + 8 * _SPLIT_WARPS
-    fwd_smem = item * (2 * WIDE_TAB * 6 * cpt + 4 * cpt + 6 * WIDE_TAB + 4 * _SPLIT_WARPS
-                       + (3 * J * (J + 1) if kc >= 2 else 0))
-
-    def bwd_bytes(ks):
-        return item * (fixed + 8 * ks * cpt + ks * slot)
+    ks_max = next(k for k in range(min(kc, WIDE_TAB), 0, -1)
+                  if kc <= WIDE_TAB or WIDE_TAB % k == 0)
 
     def chains(nbytes):
         return min(SM_SMEM_BYTES // (nbytes + 1024), 2048 // nts)
-    regs_chains = {(4, 40): 4, (4, 64): 2, (8, 40): 2}.get((item, cpt), 1)
-    fwd_chains = min(regs_chains, chains(fwd_smem))
-    ks = next(k for k in range(min(kc, WIDE_TAB), 0, -1)
-              if (kc <= WIDE_TAB or WIDE_TAB % k == 0) and bwd_bytes(k) <= SMEM_BYTES)
-    return WideShape(2, cpt, nts, ks, 1, fwd_chains, fwd_smem, bwd_bytes(ks), 0, 0, 0)
+    if cpt in WIDE_CPT:
+        slot = nts * cpt
+        fixed = WIDE_TAB * (9 * cpt + 4) + 4 * cpt + 8 * _SPLIT_WARPS
+        fwd_smem = item * (2 * WIDE_TAB * 6 * cpt + 4 * cpt + 6 * WIDE_TAB + 4 * _SPLIT_WARPS
+                           + (3 * J * (J + 1) if kc >= 2 else 0))
+
+        def bwd_bytes(ks):
+            return item * (fixed + 8 * ks * cpt + ks * slot)
+        regs_chains = {(4, 40): 4, (4, 64): 2, (8, 40): 2}.get((item, cpt), 1)
+        fwd_chains = min(regs_chains, chains(fwd_smem))
+        ks = next(k for k in range(ks_max, 0, -1)
+                  if (kc <= WIDE_TAB or WIDE_TAB % k == 0) and bwd_bytes(k) <= SMEM_BYTES)
+        return WideShape(cpt, nts, ks, 1, fwd_chains, fwd_smem, bwd_bytes(ks), 0, 0, 0)
+
+    cw = cpt
+
+    def fwd_off(stj):
+        return -(-(2 * WIDE_TAB * 6 * cw + 4 * cw + 6 * WIDE_TAB + 4 * _TAIL_WARPS
+                   + 3 * stj * (stj + 1)) // 4) * 4
+    tail = nts * (cw - TAIL_RC[item, False])
+    tail_smem = item * (fwd_off(0) + tail) <= SMEM_BYTES
+    tail_in = tail if tail_smem else 0
+    stage = kc >= 2 and item * (fwd_off(J) + tail_in) <= SMEM_BYTES
+    fwd_smem = item * (fwd_off(J if stage else 0) + tail_in)
+    fixed = WIDE_TAB * (9 * cw + 4) + 4 * cw + 8 * ks_max * cw + 8 * _TAIL_WARPS
+    slots, gtail = ks_max * nts * cw, nts * (cw - TAIL_RC[item, True])
+    slots_in = slots if item * (fixed + slots) <= SMEM_BYTES else 0
+    gtail_in = gtail if item * (fixed + slots_in + gtail) <= SMEM_BYTES else 0
+    bwd_smem = item * (fixed + slots_in + gtail_in)
+    return WideShape(cw, nts, ks_max, chains(bwd_smem), 1, fwd_smem, bwd_smem,
+                     0 if tail_smem else tail, gtail - gtail_in, slots - slots_in)
 
 
 # ---------------------------------------------------------------------------

@@ -241,12 +241,13 @@ def test_bwd_launch_shape_fits_shared_memory(dtype, kc):
     fits the H100's 232,448 bytes. Up to 32 terms (the warp-per-chain K4):
     at least one chain a block and a sub-chunk of 1 <= ks <= kc steps (at
     most 32: one lane keeps a step's per-step cotangents). Past 32 (the
-    wide kernels, a block a chain): the register design up to
-    ``wide_cpt`` (the state in registers, K4's sub-chunk dividing the
-    8-step window where kc is longer), one thread a row past it, with what
-    shared memory does not hold in the device scratch; the forward state
-    of the DRWCelerite flagship (J = 40) is in registers, that of float64
-    at J = 100 in the scratch."""
+    wide kernels, a block a chain): the register design up to 64 terms
+    (the state in registers, K4's sub-chunk dividing the 8-step window
+    where kc is longer), past it the same with each thread's columns past
+    ``TAIL_RC`` (the tail) in shared memory, or in the device scratch
+    where shared memory does not hold them; the forward state of the
+    DRWCelerite flagship (J = 40) is in registers, float32's forward tail
+    in shared memory at every J, float64's at J = 100 in the scratch."""
     for J in range(1, vjp.NARROW_TERMS + 1):
         for batch in (1, 16, 37, 512, 1024, 4096):
             cpb, ks, smem = vjp.bwd_launch_shape(dtype, J, kc, batch)
@@ -254,20 +255,24 @@ def test_bwd_launch_shape_fits_shared_memory(dtype, kc):
             assert 0 < smem <= vjp.SMEM_BYTES and smem % cpb == 0
             assert cpb <= -(-batch // vjp.H100_SMS)  # small batches spread over the SMs
     for J in range(vjp.NARROW_TERMS + 1, vjp.MAX_TERMS + 1):
-        R = 2 * J
+        item = torch.empty((), dtype=dtype).element_size()
         for batch in (1, 1024):
             s = vjp.wide_shape(J, dtype, batch, kc)
             assert 1 <= s.ks <= min(kc, vjp.WIDE_TAB) and 0 < s.bwd_smem <= vjp.SMEM_BYTES
             assert 0 < s.fwd_smem <= vjp.SMEM_BYTES
-            if s.cpt:
-                assert J <= s.cpt and s.lanes == 2 and s.carry_scratch == 0
-                assert kc <= vjp.WIDE_TAB or vjp.WIDE_TAB % s.ks == 0
+            assert kc <= vjp.WIDE_TAB or vjp.WIDE_TAB % s.ks == 0
+            if J <= 64:
+                assert s.cpt in vjp.WIDE_CPT and J <= s.cpt
+                assert s.carry_scratch == s.chunk_scratch == s.fwd_scratch == 0
             else:
-                assert s.carry_scratch in (0, R * R) and s.chunk_scratch in (0, 3 * s.ks * J * (J | 1))
-                assert s.chunk_scratch or batch <= vjp.H100_SMS  # more chains than SMs: occupancy first
-            assert s.fwd_scratch in (0, R * R)
+                assert s.cpt == -(-J // 4) * 4 and s.threads == -(-4 * J // 32) * 32
+                tail = s.threads * (s.cpt - vjp.TAIL_RC[item, False])
+                gtail = s.threads * (s.cpt - vjp.TAIL_RC[item, True])
+                assert s.fwd_scratch in (0, tail) and s.carry_scratch in (0, gtail)
+                assert s.chunk_scratch in (0, s.ks * s.threads * s.cpt)
+                assert dtype == torch.float64 or s.fwd_scratch == 0
     assert vjp.wide_shape(40, dtype).fwd_scratch == 0
-    assert vjp.wide_shape(100, torch.float64).fwd_scratch == 200 * 200
+    assert vjp.wide_shape(100, torch.float64).fwd_scratch == 416 * (100 - 32)
 
 
 @pytest.mark.parametrize("batch", [1, 37, 512, 1024, 4096])
@@ -276,21 +281,25 @@ def test_bwd_launch_shape_fits_shared_memory(dtype, kc):
 def test_wide_launch_shape(J, dtype, batch):
     """The wide kernels' launch shape at every J past 32, both dtypes and
     batches from one chain to four per SM: shared memory within a block's
-    232,448 bytes, at most 1024 threads a block, ks <= kc, no T chunk in
-    device memory for J <= 64 in float32, and at J = 40 in float32 (the
-    DRWCelerite flagship) at least two forward chains (K3) an SM and K4
-    with all 8 steps of a chunk in its slots (one chain: PERF.md); the
-    register design exactly up to J = 64."""
+    232,448 bytes, at most 512 threads a block (two a row), ks <= kc, no
+    T slots, no G and no forward state in device memory for J <= 64 in
+    float32, and at J = 40 in float32 (the DRWCelerite flagship) at least
+    two forward chains (K3) an SM and K4 with all 8 steps of a chunk in
+    its slots (one chain: PERF.md); the register design exactly up to
+    J = 64, past it the row half rounded up to 4 columns with the forward
+    tail in shared memory in float32 at every J."""
     for kc in (1, 3, 8, 103):
         s = vjp.wide_shape(J, dtype, batch, kc)
         assert s.fwd_smem <= vjp.SMEM_BYTES and s.bwd_smem <= vjp.SMEM_BYTES
-        assert s.threads <= 1024 and s.threads % 32 == 0
+        assert s.threads <= 512 and s.threads % 32 == 0 and s.threads >= 4 * J
         assert 1 <= s.ks <= kc and s.chains >= 1 and s.fwd_chains >= 1
         if dtype == torch.float32 and J <= 64:
             assert s.chunk_scratch == 0 and s.carry_scratch == 0 and s.fwd_scratch == 0
+        if dtype == torch.float32:
+            assert s.fwd_scratch == 0
         if dtype == torch.float32 and J == 40:
             assert s.fwd_chains >= 2 and s.ks == min(kc, vjp.WIDE_TAB)
-    assert (s.cpt > 0) == (J <= 64)
+    assert (s.cpt in vjp.WIDE_CPT) == (J <= 64) and s.cpt >= J
 
 
 def test_bwd_launch_shape_choices():

@@ -850,7 +850,7 @@ def test_sharded_batched_fn_on_nccl_world_of_one(card):
 # the wide kernels past 32 terms (csrc/celerite_wide.cu): K1, K2, K0, K3, K4
 # ---------------------------------------------------------------------------
 
-WIDE_J = [33, 40, 64, 70, 100, 128]
+WIDE_J = [33, 40, 64, 65, 70, 100, 128]
 
 
 def _wide_counts():
@@ -974,8 +974,8 @@ def test_wide_adjoint_chunk_lengths_and_placements_on_card(card, dtype, kc, J, B
     recursion replayed from the checkpoint), at each placement its launch
     shape picks: at J = 40 the register design (G in registers, the T
     slots in shared memory, fewer or more chains than SMs alike), at
-    J = 128 one thread a row with G and the T chunk in the device scratch
-    (G alone exceeds shared memory)."""
+    J = 128 past the registers, with G's tail and the slots in the device
+    scratch (with the ks = 8 sub-chunk's rows they exceed shared memory)."""
     from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
 
     sms = torch.cuda.get_device_properties(card).multi_processor_count
@@ -983,11 +983,11 @@ def test_wide_adjoint_chunk_lengths_and_placements_on_card(card, dtype, kc, J, B
     shape = _adjoint_vs_plain(card, dtype, np_args, None, kc, spread=True)
     assert (B > sms) == (B == 140)  # 37 chains below the card's SMs, 140 above
     if J == 40:
-        assert (shape.lanes, shape.cpt) == (2, 40) and shape.chunk_scratch == 0
+        assert shape.cpt == 40 and shape.chunk_scratch == 0
         assert 1 <= shape.ks <= min(kc, vjp.WIDE_TAB)
         assert kc <= vjp.WIDE_TAB or vjp.WIDE_TAB % shape.ks == 0
     else:
-        assert (shape.cpt, shape.ks) == (0, min(kc, vjp.WIDE_TAB))
+        assert (shape.cpt, shape.ks) == (128, min(kc, vjp.WIDE_TAB))
         assert shape.carry_scratch and shape.chunk_scratch
 
 
@@ -1011,13 +1011,13 @@ def test_wide_adjoint_at_the_fit_batch_on_card(card, dtype):
 @pytest.mark.parametrize("J", [64, 65])
 def test_wide_design_switch_on_card(card, dtype, J):
     """Both sides of the J where the wide kernels leave the register
-    design for one thread a row (past 64 terms): K1, K3 and K4 against
-    their plain versions."""
+    design for its form past the registers (past 64 terms): K1, K3 and K4
+    against their plain versions."""
     from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
 
     np_args = _problem(37, J, 100, seed=J)
     shape = _adjoint_vs_plain(card, dtype, np_args, None, 8, spread=True)
-    assert (shape.cpt > 0) == (J <= 64)
+    assert shape.cpt == (64 if J <= 64 else 68)
     args = [torch.as_tensor(x, dtype=dtype, device=card) for x in np_args]
     before = _wide_counts()
     k = batched_loglike(*args)
@@ -1075,24 +1075,82 @@ def test_wide_backward_on_card_runs_the_kernels_only(card, monkeypatch):
 
 @pytest.mark.cuda
 def test_wide_and_narrow_forms_agree_on_card(card):
-    """At J = 32 the wide entries (called directly, in both designs)
-    equal the warp-per-chain kernels within 1e-9 in float64: the same
-    function."""
+    """At J = 32 the wide entry (called directly, the register design)
+    equals the warp-per-chain kernel within 1e-9 in float64: the same
+    function; the design past the registers refuses J <= 64."""
     from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
 
     a, b, c, d, t, y, s2 = (torch.as_tensor(x, device=card) for x in _problem(37, 32, 200, 8))
     k1 = batched_loglike(a, b, c, d, t, y, s2)
     lib = vjp._wide_lib()
     fin = torch.isfinite(k1)
-    for cpt in (0, vjp.wide_cpt(32)):  # one thread a row; the register design
+    for cpt in (vjp.wide_cpt(32), 68):  # the register design; past the registers
         out = torch.empty_like(k1)
         args = [x.contiguous() for x in (a, b, c, d, t)] + [None, y, s2, out, None]
         err = lib.celerite_wide_fwd_f64(*[None if x is None else x.data_ptr() for x in args],
                                         37, 32, 200, cpt, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
+        if cpt == 68:
+            assert err != 0
+            continue
         assert err == 0
         assert torch.equal(fin, torch.isfinite(out))
         assert float(((out[fin] - k1[fin]).abs() / k1[fin].abs()).max()) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
+@pytest.mark.parametrize("J", [65, 70, 100, 128])
+@pytest.mark.parametrize("B", [1, 37, 1024])
+def test_past_64_kernels_match_plain_on_card(card, dtype, tol, J, B):
+    """The design past the registers (64 < J <= 128) at one chain, a
+    ragged batch and the fit's batch: K1, K3 and K4 against their plain
+    versions (K3/K4 under _adjoint_vs_plain's gates: float32 on the rows'
+    median and 90th percentile), with the placement the launch shape
+    takes at that batch; in float32 the forward tail in shared memory. One
+    chain is row 1 of the 37-chain problem: float64 against the plain
+    versions, and in float32 (one row has no median to gate) equal bit
+    for bit to that row of the 37-chain launch."""
+    from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
+
+    np_args = _problem(max(B, 37), J, 60, seed=J + 37 * (B > 1))
+    if B == 1:
+        np_args = tuple(x if x.ndim == 1 else x[1:2] for x in np_args)
+    if B == 1 and dtype == torch.float32:
+        full = [torch.as_tensor(x, dtype=dtype, device=card)
+                for x in _problem(37, J, 60, seed=J)]
+        one = [x if x.dim() == 1 else x[1:2].contiguous() for x in full]
+        k_full, k_one = batched_loglike(*full), batched_loglike(*one)
+        ll_f, res_f = vjp.fwd_aug(*full)
+        ll_o, res_o = vjp.fwd_aug(*one)
+        g_f = torch.where(torch.isfinite(ll_f), torch.ones_like(ll_f), torch.zeros_like(ll_f))
+        grads_f = vjp.bwd(*full, res_f, g_f)
+        grads_o = vjp.bwd(*one, res_o, g_f[1:2])
+        torch.cuda.synchronize()
+        assert torch.equal(k_one, k_full[1:2]) and torch.equal(ll_o, ll_f[1:2])
+        for x, y in zip(res_o, res_f):
+            assert torch.equal(x, y[1:2])
+        for x, y in zip(grads_o, grads_f):
+            if x.dim() == 2:  # per-chain rows (t-bar is summed over the chains)
+                assert torch.equal(x, y[1:2])
+        assert bool(torch.isfinite(k_one).all())
+        return
+    args = [torch.as_tensor(x, dtype=dtype, device=card) for x in np_args]
+    before = _wide_counts()
+    k = batched_loglike(*args)
+    p = batched_loglike_plain(*args)
+    torch.cuda.synchronize()
+    _moved(before, fwd=1)
+    fin = torch.isfinite(p)
+    assert torch.equal(torch.isfinite(k), fin)
+    if bool(fin.any()):
+        err = (k[fin] - p[fin]).abs()
+        err = err / p[fin].abs() if dtype == torch.float64 else err
+        assert float(err.max()) <= tol
+    shape = _adjoint_vs_plain(card, dtype, np_args, None, 8, spread=B > 1)
+    assert shape.cpt == -(-J // 4) * 4
+    if dtype == torch.float32:
+        assert shape.fwd_scratch == 0
 
 
 # ---------------------------------------------------------------------------
@@ -1126,6 +1184,22 @@ def test_carry_entries_match_plain_on_card(card, dtype, J):
     float32 as chip_smoke.py's phase 6 gates it, each output within 3 x
     the plain float32 loop's own error against the plain float64 loop on
     the same inputs."""
+    _carry_vs_plain(card, dtype, J, spread=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("J", [100, 128])
+def test_past_64_carry_entries_match_plain_on_card(card, dtype, J):
+    """As test_carry_entries_match_plain_on_card past the registers, with
+    float32 gated as the wide kernels' are (PERF.md §2): each output
+    within 3 x the plain float32 loop's own error at the median and 90th
+    percentile of the chains' rows, the time partials (which the entry
+    sums over the chains) taken chain by chain."""
+    _carry_vs_plain(card, dtype, J, spread=True)
+
+
+def _carry_vs_plain(card, dtype, J, spread):
     from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
 
     (a, b, c, d, t, y, s2), dtg, g = _carry_problem(J, dtype, card)
@@ -1172,8 +1246,29 @@ def test_carry_entries_match_plain_on_card(card, dtype, J):
         return
     up = lambda z: z.double()  # noqa: E731
     ref = rows(*plain(tuple(map(up, x(blocks[1]))), up(cin), up(ain), up(g)))
-    for k, q, r in zip(got, same, ref):
-        assert _rel_rows(k, r) <= max(3.0 * _rel_rows(q, r), 1e-5)
+    if not spread:
+        for k, q, r in zip(got, same, ref):
+            assert _rel_rows(k, r) <= max(3.0 * _rel_rows(q, r), 1e-5)
+        return
+    for k, q, r in zip(got[:-2], same[:-2], ref[:-2]):
+        assert _spread_ok(k, q, r)
+    # the time partials are summed over the chains: each chain's own, from
+    # a cotangent on that chain alone (the others' are exact zeros)
+    xs, xs64 = x(blocks[1]), tuple(map(up, x(blocks[1])))
+    res_q = vjp.fwd_aug_plain(*xs, carry=cin)[2]
+    res_r = vjp.fwd_aug_plain(*xs64, carry=up(cin))[2]
+    parts = ([], [], [])
+    for ch in range(1, 37):
+        gc = torch.zeros_like(g)
+        gc[ch] = g[ch]
+        outs = (vjp.bwd_carry(*xs[:7], k3[2], gc, xs[7], ain),
+                vjp.bwd_plain(*xs[:7], res_q, gc, xs[7], carry=ain),
+                vjp.bwd_plain(*xs64[:7], res_r, up(gc), xs64[7], carry=up(ain)))
+        for lst, o in zip(parts, outs):
+            lst.append(torch.stack(o[4:6]))
+    k, q, r = (torch.stack(lst) for lst in parts)  # (chains, t/dt, N)
+    for i in (0, 1):
+        assert _spread_ok(k[:, i], q[:, i], r[:, i])
 
 
 @pytest.mark.cuda
@@ -1184,6 +1279,19 @@ def test_carry_entries_chained_equal_one_launch_on_card(card, J):
     launch of the entry without a carry: the value and every cotangent,
     float64 within 1e-9 relative, the non-PD lane -inf with a zero
     gradient."""
+    _chained(card, J, [slice(0, 100), slice(100, 233), slice(233, 300)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", [65, 100, 128])
+def test_past_64_carry_entries_chained_over_four_blocks_on_card(card, J):
+    """The carry entries past the registers, the series in four blocks
+    (70, 77, 80 and 73 steps), against one launch, as
+    test_carry_entries_chained_equal_one_launch_on_card."""
+    _chained(card, J, [slice(0, 70), slice(70, 147), slice(147, 227), slice(227, 300)])
+
+
+def _chained(card, J, blocks):
     from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
 
     (a, b, c, d, t, y, s2), dtg, g = _carry_problem(J, torch.float64, card, seed=70)
@@ -1192,7 +1300,6 @@ def test_carry_entries_chained_equal_one_launch_on_card(card, J):
     ll = batched_loglike(*args, dt)
     ll3, res = vjp.fwd_aug(*args, dt=dt)
     grads = vjp.bwd(*args, res, g, dt=dt)
-    blocks = [slice(0, 100), slice(100, 233), slice(233, 300)]
     carry, c3 = vjp.neutral_carry(37, J, a), vjp.neutral_carry(37, J, a)
     parts, parts3, saved = [], [], []
     for sl in blocks:
@@ -1203,8 +1310,8 @@ def test_carry_entries_chained_equal_one_launch_on_card(card, J):
         parts3.append(q)
         saved.append(r)
     ain = a.new_zeros(37, vjp.adjoint_width(J))
-    outs = [None] * 3
-    for k in (2, 1, 0):
+    outs = [None] * len(blocks)
+    for k in reversed(range(len(blocks))):
         sl = blocks[k]
         outs[k] = vjp.bwd_carry(a, b, c, d, t[sl], y[:, sl], s2[:, sl], saved[k], g, dtg[sl], ain)
         ain = outs[k][-1]

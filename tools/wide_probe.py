@@ -6,7 +6,9 @@ Takes the source of this checkout and, with ``--old``, another
 ``celerite_wide.cu`` (the design of commit d1cfca8, say), inserts
 ``clock64()`` stamps into a copy of each around the parts of the float32
 K3 (``Aug``) and K4 step, builds the plain and the stamped copies with
-nvcc under ``build/wide_probe/``, and runs them at J = 40 (``--terms``),
+nvcc under ``build/wide_probe/``, and runs them at J = 40 (``--terms``;
+past 64 the form past the registers, against the old design's one thread
+a row),
 N = 485, kc = 8 on synthetic positive-definite inputs, at each B of
 ``--batches``; K4 of the old design at both placements its launch shape
 could pick (the T chunk in shared memory, or in the device scratch). It
@@ -156,11 +158,15 @@ class Design:
     def __init__(self, name, src_path, J):
         with open(src_path) as fh:
             src = fh.read()
-        self.name, self.new, self.J = name, "split_bwd_kernel" in src, J
+        # the register design up to 64 terms and, where the source has it,
+        # past them (Tail); else past 64 the one-thread-a-row design (cpt 0)
+        self.name, self.J = name, J
+        self.new = "split_bwd_kernel" in src and (J <= 64 or "bool Tail" in src)
         with ThreadPoolExecutor(2) as ex:
             self.libs = dict(zip(("plain", "stamped"),
                                  ex.map(lambda s: build(name, src, s), (False, True))))
-        nint = 5 if self.new else 4
+        nint = 5 if "split_bwd_kernel" in src else 4
+        self.cpt = ([vjp.wide_cpt(J)] if self.new else [0]) if nint == 5 else []
         for lib in self.libs.values():
             lib.celerite_wide_fwd_aug_f32.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * nint
                                                       + [ctypes.c_void_p])
@@ -175,9 +181,18 @@ class Design:
         J = self.J
         if self.new:
             s = vjp.wide_shape(J, torch.float32, B, KC)
-            return [(f"T slots in smem ks={s.ks}", s.ks, 0, 0)]
-        ks = min(KC, 8)
-        return [("chunk in smem", ks, 0, 0), ("chunk in scratch", ks, 0, 3 * ks * J * (J | 1))]
+            where = lambda x: "scratch" if x else "smem"  # noqa: E731
+            return [(f"G tail in {where(s.carry_scratch)}, T slots in "
+                     f"{where(s.chunk_scratch)} ks={s.ks}", s.ks, s.carry_scratch,
+                     s.chunk_scratch)]
+        # the one-thread-a-row design: G (R x R) in shared memory where it
+        # fits beside its rows, the T chunk there too where it also fits
+        ks, rows, G, chunk = min(KC, 8), 14 * J + 24, 4 * J * J, 3 * min(KC, 8) * J * (J | 1)
+        carry = 0 if 4 * (rows + G) <= vjp.SMEM_BYTES else G
+        out = [("chunk in scratch", ks, carry, chunk)]
+        if 4 * (rows + (G if not carry else 0) + chunk) <= vjp.SMEM_BYTES:
+            out.insert(0, ("chunk in smem", ks, carry, 0))
+        return out
 
 
 def inputs(B, J, dev):
@@ -207,7 +222,7 @@ def runners(design: Design, lib, args, place):
     scr = [new(B * carry) if carry else None, new(B * chunk) if chunk else None]
     p = lambda x: None if x is None else ctypes.c_void_p(x.data_ptr())  # noqa: E731
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    cpt = [vjp.wide_cpt(J)] if design.new else []
+    cpt = design.cpt
 
     def k3():
         e = lib.celerite_wide_fwd_aug_f32(*map(p, (a, b, c, d, t)), None, p(y), p(s2), p(ll),
