@@ -30,7 +30,11 @@ tempered SMC (``run_inference(sampler="smc")``, 1024 particles, 12 MALA
 moves, gated on the reference's evidence and the referee) and NUTS (on a
 correlated Gaussian on the card, with the analytic gates; and
 ``run_inference(sampler="nuts", init="advi")`` on the flagship, 16
-chains, checked for finite draws and its exact leapfrog count). Then the
+chains, checked for finite draws and its exact leapfrog count), and the
+host-stepped drivers (phase 16b): ``run_nuts_stepped`` on that Gaussian
+and ``run_inference(hmc_stepped=True)`` on the flagship, NUTS and ChEES,
+bit-equal to the unstepped runs, and ``value_and_grad_tables`` bit-equal
+to K3 then K4. Then the
 other model builders: the double-bending and periodic-in-red-noise
 models (J = 20, on their committed 485-point light curves) and CARMA(2,1)
 and CARMA(3,2) (J = 1 and 2, on the flagship subset), each at its stored
@@ -56,10 +60,12 @@ at J = 40 and 64 and the float64 value at the referee mean against the
 JAX package's (22a), ``run_inference(sampler="smc")`` on the DRWCelerite
 flagship through the wide K1 and K3/K4 alone (22b; gated on the
 evidence ± 1.5 and the referee), then every wide kernel against its
-plain version at J = 40, 70 and 100 (J = 40 also at the fit's 1024
-particles) and the entry points that no sampler
+plain version at J = 40, 70, 100 and 128 (J = 40 also at the fit's 1024
+particles; the per-lane forms at J = 40, 100 and 128; K0 at 40, 100 and
+128) and the entry points that no sampler
 runs here: the DRWCelerite many-model's sweeps and gradient (the wide K2
-and per-lane K3/K4) and ``batched_loglike_tables`` (the wide K0) (22).
+and per-lane K3/K4) and ``batched_loglike_tables`` (the wide K0) (22),
+past the registers too (22c, 22d).
 Then the time-sharded scan (phase 23, ``parallel/seq_scan.py``): the
 carry entries of K1, K3 and K4 (``celerite_fwd_carry``,
 ``celerite_fwd_aug_carry``, ``celerite_bwd_carry`` and their wide forms),
@@ -89,8 +95,9 @@ code, the wide kernels' times and fit and the seq scan (14, 19-21, 22a,
 22b, 23); then
 phase 9, the ChEES fit, starts in a child process of this script
 (``--only-chees``) and runs on the same card while this process runs NS,
-the multi-dataset run, NUTS, the other builders, the wide kernels'
-checks and the CLIs (5, 12, 15-18, 22, 24). The host-bound samplers
+the multi-dataset run, NUTS, the host-stepped drivers, the other
+builders, the wide kernels' checks and the CLIs (5, 12, 15-18, 16b, 22,
+24). The host-bound samplers
 then share the card and the host, so those phases' walls are not those
 of a run alone; with
 ``--serial`` (or on a card whose compute mode is not Default) phase 9 runs
@@ -142,11 +149,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_wide_fwd_aug_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
     "celerite_wide_bwd_multi": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
     "celerite_wide_tables": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
-    # the wide forms past the registers (J > 64), at J = 100 and 128
-    **{f"celerite_wide_{k}_j{2 * nc}": (WIDE_SRC, f"pioran_tpu/ops/{line}")
-       for nc in (50, 64) for k, line in (("fwd", "pallas_celerite.py:252"),
-                                          ("fwd_aug", "pallas_celerite_vjp.py:127"),
-                                          ("bwd", "pallas_celerite_vjp.py:540"))},
+    # the wide forms past the registers (J > 64), at J = 100 and 128:
+    # shared grid, per lane, and K0 at J = 100
+    **{f"celerite_wide_{k}{lane}_j{2 * nc}": (WIDE_SRC, f"pioran_tpu/ops/{line}")
+       for lane in ("", "_multi") for nc in (50, 64)
+       for k, line in (("fwd", "pallas_celerite.py:252"),
+                       ("fwd_aug", "pallas_celerite_vjp.py:127"),
+                       ("bwd", "pallas_celerite_vjp.py:540"))},
+    "celerite_wide_tables_j100": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:96"),
     # the carry entries (a block of a split series), narrow and wide, of
     # the TPU kernels whose carry refs they port
     "celerite_fwd_carry": (FWD_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
@@ -185,6 +195,16 @@ SMC = dict(num_particles=1024, num_moves=12)  # the committed parity run's setti
 # fewest whose split halves the ESS estimator accepts)
 NUTS_FLAGSHIP = dict(num_chains=16, num_warmup=8, num_samples=8)
 NUTS_GAUSSIAN = dict(num_warmup=150, num_samples=250)  # halved from 300 + 500 with CHEES
+# phase 16b: stepped NUTS on phase 15's Gaussian (34 warmup iterations, the
+# fewest with a mass refresh), and the flagship's host-stepped runs, each
+# against the same call without hmc_stepped (f32, prior inits). From prior
+# draws NUTS's trees sit near the depth cap, about 200 leaf steps an
+# iteration of 16-19 ms each on one H100: 10 + 10 iterations took 80 s a
+# run, so 2 + 3. The stepped drivers call run_nuts and run_chees, and no
+# code reads their block past its check, so no iteration count is special
+STEPPED_GAUSSIAN = dict(num_warmup=34, num_samples=16)
+STEPPED_NUTS = dict(num_chains=8, num_warmup=2, num_samples=3, seed=3)
+STEPPED_CHEES = dict(num_chains=64, num_warmup=30, num_samples=20, mass="dense", seed=4)
 # the other model builders: dataset, light curve, builder, its keywords,
 # stored order -> spec order of the stored ML point (None: no reference
 # run), J
@@ -218,6 +238,7 @@ WIDE_NC = (20, 35, 50, 64)
 WIDE_TIMED_NC = (20, 32)
 WIDE_PAST_NC = (50, 64)
 WIDE_BATCHES = (64, 65)             # a batch, and a ragged one
+PAST_SWEEPS = 3                     # no-gradient and table sweeps past the registers
 DRW_LL64 = 1021.110678373424        # JAX package, CPU, float64, at the referee mean
 # phase 14's 1.0 widened by the basis's +0.37 nats at the referee mean
 # (tests/test_torch_inference.py) and the fit's own noise
@@ -1303,17 +1324,23 @@ def phase_smc(dev, out_dir):
     return launches
 
 
+def gaussian_target(dev):
+    """Phase 15's correlated Gaussian (tests/test_samplers.py's) on the
+    card: (covariance, log-density of (C, 3) rows, the chains' start)."""
+    cov = np.array([[2.0, 1.2, 0.3], [1.2, 1.5, 0.5], [0.3, 0.5, 1.0]])
+    prec = torch.linalg.inv(torch.as_tensor(cov, device=dev))
+    z0 = torch.as_tensor(np.random.default_rng(1).normal(size=(8, 3)), device=dev)
+    return cov, lambda Z: -0.5 * torch.sum((Z @ prec) * Z, dim=1), z0
+
+
 def phase_nuts_gaussian(dev):
     """NUTS on the correlated Gaussian of tests/test_samplers.py, on the
     card, with its gates."""
     from pioran_tpu_torch.samplers.nuts import run_nuts
 
-    cov = np.array([[2.0, 1.2, 0.3], [1.2, 1.5, 0.5], [0.3, 0.5, 1.0]])
-    prec = torch.linalg.inv(torch.as_tensor(cov, device=dev))
-    z0 = torch.as_tensor(np.random.default_rng(1).normal(size=(8, 3)), device=dev)
+    cov, logp, z0 = gaussian_target(dev)
     t0 = time.perf_counter()
-    samples, stats = run_nuts(lambda Z: -0.5 * torch.sum((Z @ prec) * Z, dim=1), z0,
-                              torch.Generator(device=dev).manual_seed(0),
+    samples, stats = run_nuts(logp, z0, torch.Generator(device=dev).manual_seed(0),
                               **NUTS_GAUSSIAN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1395,6 +1422,83 @@ def phase_nuts_flagship(dev, out_dir):
         check(os.path.isfile(os.path.join(log_dir, *rel)), f"{rel} not written")
     print("phase 16 NUTS flagship: ok")
     return launches
+
+
+def same_run(tag, stepped, plain, counts):
+    """Gates a run_inference call with hmc_stepped=True against the same
+    call without it: samples and ncall bit-equal, the K3/K4 launches
+    equal. ``counts``: each run's launches."""
+    check(np.array_equal(stepped["samples"], plain["samples"]),
+          f"{tag}: stepped samples differ from the unstepped run's")
+    check(stepped["ncall"] == plain["ncall"],
+          f"{tag}: stepped ncall {stepped['ncall']} != {plain['ncall']}")
+    check(counts[0] == counts[1] and min(counts[0]["celerite_fwd_aug"],
+                                         counts[0]["celerite_bwd"]) > 0,
+          f"{tag}: launches stepped {counts[0]} unstepped {counts[1]}")
+
+
+def phase_stepped(dev):
+    """Phase 16b, beside the ChEES child: the host-stepped drivers against
+    the unstepped ones on the card, bit for bit. run_nuts_stepped (block
+    7) against run_nuts on phase 15's Gaussian with one generator seed
+    (STEPPED_GAUSSIAN: 34 warmup iterations, the fewest with a mass
+    refresh); run_inference(hmc_stepped=True) on the flagship, NUTS
+    (STEPPED_NUTS) and ChEES (STEPPED_CHEES), prior inits, f32, against
+    the same calls without it; value_and_grad_tables at B = 512 against
+    fwd_aug then bwd. Returns the run_inference calls' launches."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops.cuda_celerite_vjp import bwd, fwd_aug, value_and_grad_tables
+    from pioran_tpu_torch.samplers.nuts import run_nuts, run_nuts_stepped
+
+    t0 = time.perf_counter()
+    _, logp, z0 = gaussian_target(dev)
+    ref_s, ref_st = run_nuts(logp, z0, torch.Generator(device=dev).manual_seed(0),
+                             **STEPPED_GAUSSIAN)
+    s, st = run_nuts_stepped(logp, z0, torch.Generator(device=dev).manual_seed(0), block=7,
+                             **STEPPED_GAUSSIAN)
+    check(np.array_equal(s, ref_s.cpu().numpy().transpose(1, 0, 2)),
+          "stepped NUTS draws differ from run_nuts's on the card")
+    check(all(np.array_equal(st[k], ref_st[k].cpu().numpy())
+              for k in ("logp", "step_size", "inv_mass"))
+          and all(np.array_equal(st[k], torch.cat([ref_st[f"warmup_{k}"], ref_st[k]], 1)
+                                 .cpu().numpy())
+                  for k in ("accept_stat", "diverging", "depth", "num_leaves")),
+          "stepped NUTS statistics differ from run_nuts's on the card")
+    gauss_s = time.perf_counter() - t0
+
+    spec = flagship_f32(dev)
+    total, walls = {}, {}
+    for sampler, kw in (("nuts", STEPPED_NUTS), ("chees", STEPPED_CHEES)):
+        runs, counts = [], []
+        for stepped in (True, False):
+            zero_launch_counts()
+            t1 = time.perf_counter()
+            runs.append(tinf.run_inference(spec, sampler=sampler, hmc_stepped=stepped, **kw))
+            torch.cuda.synchronize()
+            walls[f"{sampler}{'_stepped' if stepped else ''}"] = round(time.perf_counter() - t1, 2)
+            counts.append(launch_counts())
+            total = add_counts(total, counts[-1])
+        same_run(f"run_inference({sampler})", *runs, counts)
+        print(f"phase 16b {sampler} flagship {kw}: hmc_stepped samples and ncall "
+              f"({runs[0]['ncall']}) bit-equal to the unstepped run's; launches each {counts[0]}")
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for dtype in (torch.float64, torch.float32):
+        a, b, c, d, y, s2 = flagship_inputs(spec, ADJ_BATCHES[0], gen)
+        t = torch.as_tensor(spec.t, dtype=torch.float64, device=dev)
+        args = tuple(x.to(dtype) for x in (a, b, c, d, t, y, s2))
+        ll, grads = value_and_grad_tables(*args)
+        ll_k, res = fwd_aug(*args)
+        grads_k = bwd(*args, res, torch.isfinite(ll_k).to(dtype))
+        torch.cuda.synchronize()
+        check(torch.equal(ll, ll_k) and all(torch.equal(x, y) for x, y in zip(grads, grads_k)),
+              f"value_and_grad_tables ({dtype}) differs from fwd_aug then bwd")
+    print(f"phase 16b stepped NUTS on the Gaussian ({STEPPED_GAUSSIAN}, block 7) bit-equal to "
+          f"run_nuts (wall_s of both {gauss_s:.2f}); run_inference walls {walls}; "
+          f"value_and_grad_tables at "
+          f"B={ADJ_BATCHES[0]} bit-equal to fwd_aug then bwd (f64, f32)")
+    print("phase 16b stepped drivers: ok")
+    return total
 
 
 def builder_spec(name, dev, dtype):
@@ -2377,9 +2481,11 @@ def phase_wide_times(dev, datasets):
     """Phase 22a, before the ChEES child (the card alone): each wide
     kernel's CUDA-event time at J = 40 and 64 on DRWCelerite flagship
     inputs (float32, N = 485) beside its bound; the plain versions' times
-    at J = 40 at the same shapes; the float64 value at the referee mean
-    through the wide K1. Returns {kernel: (ms at J = 40, plain ms,
-    (bytes, ops) at J = 40)}."""
+    at J = 40 at the same shapes; past the registers (J = 100, 128) K1,
+    K3, K4, the per-lane K2, K3, K4 and (J = 100) K0, each with its plain
+    version; the float64 value at the referee mean through the wide K1.
+    Returns {kernel row: (ms, plain ms, (bytes, ops))}, J = 40 unless the
+    row names its J."""
     import pioran_tpu_torch.inference as tinf
     from pioran_tpu_torch.ops import cuda_celerite as cc
     from pioran_tpu_torch.ops.cuda_celerite import (
@@ -2479,6 +2585,38 @@ def phase_wide_times(dev, datasets):
         rows[f"celerite_wide_fwd_aug_j{J}"] = (k3, p3, c3)
         rows[f"celerite_wide_bwd_j{J}"] = (k4, p4, c4)
         del res
+        # the per-lane K2, K3 and K4 at the run_inference_many batch, and
+        # K0 at J = 100 on B = 1024 flagship tables, with their plain
+        # versions at the same shapes
+        B = MULTI_BATCHES[0]
+        a, b, c, d, T, y, s2, nv, DT = multi_inputs(spec32, model, B, gen, **basis)
+        s2 = torch.where(live_steps(nv, T.shape[1]), s2, torch.ones_like(s2))
+        args = (a, b, c, d, T, y, s2)
+        ll, res = fwd_aug(*args, dt=DT, n_valid=nv)
+        g = torch.isfinite(ll).float()
+        k2 = cuda_ms(lambda: cc._launch(*args, DT, nv), 10)  # noqa: B023
+        k3 = cuda_ms(lambda: fwd_aug(*args, dt=DT, n_valid=nv), 5)  # noqa: B023
+        k4 = cuda_ms(lambda: bwd(*args, res, g, dt=DT, n_valid=nv), 3)  # noqa: B023
+        # each plain loop warmed once at this width, so that its time holds
+        # no first allocation of its checkpoints
+        p2 = cuda_ms(lambda: cc.batched_loglike_multi_plain(*args, nv, DT), 1)  # noqa: B023
+        p3 = cuda_ms(lambda: fwd_aug_plain(*args, dt=DT, n_valid=nv), 1)  # noqa: B023
+        p4 = cuda_ms(lambda: bwd_plain(*args, res, g, dt=DT, n_valid=nv), 1)  # noqa: B023
+        costs = multi_costs(B, J, T.shape[1], KC, 4, nv.cpu().numpy(), g.bool().cpu().numpy())
+        for name, ms, plain, cost in zip(("fwd", "fwd_aug", "bwd"), (k2, k3, k4), (p2, p3, p4),
+                                         costs):
+            put(f"celerite_wide_{name}_multi", J, B, ms, cost, plain)
+            rows[f"celerite_wide_{name}_multi_j{J}"] = (ms, plain, cost)
+        del res
+        if J == 100:
+            a, b, c, d, y, s2 = flagship_inputs(spec32, B, gen, **basis)
+            U, V, phi = build_tables(a, b, c, d, t)
+            tabs = (U, V, phi, y, s2, a.sum(1))
+            ms = cuda_ms(lambda: loglike_from_tables(*tabs), 5)  # noqa: B023
+            plain = cuda_ms(lambda: loglike_from_tables_plain(*tabs), 1)  # noqa: B023
+            put("celerite_wide_tables", J, B, ms, tables_cost(B, J, N), plain)
+            rows["celerite_wide_tables_j100"] = (ms, plain, tables_cost(B, J, N))
+            del U, V, phi, tabs
     for ln in lines:
         print(f"phase 22a times f32 N={N}: {ln}")
 
@@ -2543,13 +2681,14 @@ def phase_wide(dev, datasets):
     """Phase 22, beside the ChEES child: every wide kernel against its
     plain version on the DRWCelerite flagship's coefficients at 20, 35, 50
     and 64 components (J = 40, 70, 100, 128 at B = 65 and 64, and J = 40 at the
-    SMC fit's 1024 particles; the per-lane forms at J = 40 on phase 10's
-    ragged datasets; K0 at J = 40 and 100), then the paths of the
-    entry points that have no sampler here: no-gradient sweeps of the
-    DRWCelerite many-model (the wide K2), its value and gradient (the
+    SMC fit's 1024 particles; the per-lane forms at J = 40, 100 and 128 on
+    phase 10's ragged datasets; K0 at J = 40, 100 and 128), then the paths
+    of the entry points that have no sampler here: no-gradient sweeps of
+    the DRWCelerite many-model (the wide K2), its value and gradient (the
     wide per-lane K3/K4) and flagship sweeps of batched_loglike_tables
-    (the wide K0), and (22c) the DRWCelerite flagship builder at 50 and 64
-    components (J = 100, 128: the forms past the registers). Returns
+    (the wide K0), (22c) the DRWCelerite flagship builder at 50 and 64
+    components (J = 100, 128: the forms past the registers) and (22d) the
+    same many-model and table paths at 50 and 64 components. Returns
     ({kernel: f32 max abs err}, those paths' launches)."""
     import pioran_tpu_torch.inference as tinf
     from pioran_tpu_torch.ops.cuda_celerite import batched_loglike_tables
@@ -2577,16 +2716,21 @@ def phase_wide(dev, datasets):
                 name = f"{name}_j{2 * nc}"
             max_abs[name] = max(max_abs.get(name, 0.0), got[k][2])
     model64 = tinf._many_model(datasets, device=dev, dtype=torch.float64)
-    got = hold_wide(spec64, WIDE_NC[0], gen, None, model=model64)
-    summary.append(f"per-lane J={2 * WIDE_NC[0]}: " + " ".join(
-        f"{k} f64 {v[0]:.2e} f32 ratios {v[1][0]:.2f}/{v[1][1]:.2f}" for k, v in got.items()))
-    for k, name in (("K1", "celerite_wide_fwd_multi"), ("K3", "celerite_wide_fwd_aug_multi"),
-                    ("K4", "celerite_wide_bwd_multi")):
-        max_abs[name] = got[k][2]
-    for nc in (WIDE_NC[0], WIDE_NC[-1]):
+    for nc in (WIDE_NC[0],) + WIDE_PAST_NC:
+        got = hold_wide(spec64, nc, gen, None, model=model64)
+        summary.append(f"per-lane J={2 * nc}: " + " ".join(
+            f"{k} f64 {v[0]:.2e} f32 ratios {v[1][0]:.2f}/{v[1][1]:.2f}" for k, v in got.items()))
+        for k, name in (("K1", "celerite_wide_fwd_multi"), ("K3", "celerite_wide_fwd_aug_multi"),
+                        ("K4", "celerite_wide_bwd_multi")):
+            max_abs[name + (f"_j{2 * nc}" if nc in WIDE_PAST_NC else "")] = got[k][2]
+    # K0 at J = 40 and 100, each its row's error, and at J = 128
+    tables_rows = {WIDE_NC[0]: "celerite_wide_tables", WIDE_PAST_NC[0]: "celerite_wide_tables_j100"}
+    for nc in (WIDE_NC[0], WIDE_PAST_NC[0], WIDE_NC[-1]):
         w64, ratios, mx = hold_wide_tables(spec64, nc, gen)
-        summary.append(f"K0 J={2 * nc}: f64 {w64:.2e} f32 ratios {ratios[0]:.2f}/{ratios[1]:.2f}")
-        max_abs["celerite_wide_tables"] = max(max_abs.get("celerite_wide_tables", 0.0), mx)
+        summary.append(f"K0 J={2 * nc}: f64 {w64:.2e} f32 ratios {ratios[0]:.2f}/{ratios[1]:.2f} "
+                       f"f32 max abs {mx:.3e}")
+        if nc in tables_rows:
+            max_abs[tables_rows[nc]] = mx
     print(f"phase 22 wide kernels vs plain: ok N={len(spec64.t)} lanes 0 and B - 1 of the "
           f"largest batch non-PD (-inf, zero gradient); f64 gate 1e-9 relative, f32 gate 3x the plain loop's "
           f"own error at the rows' median and 90th percentile | " + " | ".join(summary))
@@ -2655,6 +2799,7 @@ def phase_wide(dev, datasets):
         past.append(f"J={J} finite share {share_j:.4f} logpost max {float(lp.max()):.3f}")
     print(f"phase 22c past the registers: DRWCelerite flagship builders, 2 sweeps at B=1024 and "
           f"a value+gradient at B=512 each: " + "; ".join(past))
+    launches.update(phase_wide_past_paths(dev, datasets, gen))
     print(f"phase 22 paths: DRWCelerite many-model ({MANY_D} datasets x {MANY['num_chains']} "
           f"chains) {PATH_A_SWEEPS} no-gradient sweeps (finite share "
           f"{float(torch.stack(fin).mean()):.3f}) and two value+gradient evaluations, "
@@ -2662,6 +2807,63 @@ def phase_wide(dev, datasets):
           f"{share:.4f}); wide launches {launches}")
     print("phase 22 J > 32: ok")
     return max_abs, launches
+
+
+def phase_wide_past_paths(dev, datasets, gen):
+    """Phase 22d, past the registers on ragged grids and tables, through
+    the entry points: the DRWCelerite many-model at 50 and 64 components
+    (J = 100, 128), PAST_SWEEPS no-gradient sweeps (the per-lane K2) and a
+    value and gradient (the per-lane K3/K4) each, then PAST_SWEEPS flagship
+    sweeps of batched_loglike_tables at 50 components (K0 at J = 100).
+    Returns those paths' launches."""
+    import pioran_tpu_torch.inference as tinf
+    from pioran_tpu_torch.ops.cuda_celerite import batched_loglike_tables
+    from pioran_tpu_torch.samplers.chees import batch_value_and_grad
+
+    B = MANY_D * MANY["num_chains"]
+    launches, past = {}, []
+    for nc in WIDE_PAST_NC:
+        J = 2 * nc
+        model = tinf._many_model(datasets, device=dev, dtype=torch.float32, n_components=nc,
+                                 **DRW)
+        TH = model.prior.sample((PAST_SWEEPS, B), generator=gen, dtype=torch.float32, device=dev)
+        Z = many_rows(model, drw_spec(dev, torch.float32, nc), B, gen)
+        zero_wide_counts()
+        with torch.no_grad():
+            fin_j = [torch.isfinite(model.loglike_batch(x)).float().mean() for x in TH]
+        lp, grad = batch_value_and_grad(model.logpost_batch, Z)
+        torch.cuda.synchronize()
+        c = wide_counts()
+        check(c["celerite_wide_fwd_multi"] == PAST_SWEEPS and c["celerite_wide_fwd_aug_multi"] == 1
+              and c["celerite_wide_bwd_multi"] == 1 and c["narrow"] == 0,
+              f"DRWCelerite many-model J={J}: launches {c}")
+        check(bool(torch.isfinite(grad[torch.isfinite(lp)]).all())
+              and bool(torch.isfinite(lp).any()), f"DRWCelerite many-model J={J}: gradient")
+        for k in ("fwd", "fwd_aug", "bwd"):
+            launches[f"celerite_wide_{k}_multi_j{J}"] = c[f"celerite_wide_{k}_multi"]
+        past.append(f"many-model J={J} sweeps' finite share "
+                    f"{float(torch.stack(fin_j).mean()):.4f} logpost max {float(lp.max()):.3f}")
+    spec = drw_spec(dev, torch.float32, WIDE_PAST_NC[0])
+    t = torch.as_tensor(spec.t, dtype=torch.float32, device=dev)
+    inputs = [flagship_inputs(spec, TABLES_BATCHES[1], gen, n_components=WIDE_PAST_NC[0], **DRW)
+              for _ in range(PAST_SWEEPS)]
+    zero_wide_counts()
+    lls = [batched_loglike_tables(a, b, cc_, d, t, y, s2) for a, b, cc_, d, y, s2 in inputs]
+    torch.cuda.synchronize()
+    c = wide_counts()
+    check(c["celerite_wide_tables"] == PAST_SWEEPS and c["narrow"] == 0,
+          f"DRWCelerite batched_loglike_tables J={2 * WIDE_PAST_NC[0]}: launches {c}")
+    share_t = float(torch.stack([torch.isfinite(x).float().mean() for x in lls]).mean())
+    check(share_t > 0.9, f"DRWCelerite table sweeps J={2 * WIDE_PAST_NC[0]}: finite share "
+          f"{share_t:.3f}")
+    launches["celerite_wide_tables_j100"] = c["celerite_wide_tables"]
+    del inputs, lls
+    past.append(f"batched_loglike_tables J={2 * WIDE_PAST_NC[0]} B={TABLES_BATCHES[1]} finite "
+                f"share {share_t:.4f}")
+    print(f"phase 22d past the registers, ragged grids and tables ({MANY_D} datasets x "
+          f"{MANY['num_chains']} chains): {PAST_SWEEPS} no-gradient sweeps and a value+gradient "
+          f"each, {PAST_SWEEPS} table sweeps: " + "; ".join(past))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3340,6 +3542,13 @@ def main(argv=None) -> int:
     wide_times = timed("22a", phase_wide_times, dev, datasets)
     wide_smc_launches = timed("22b", phase_wide_smc, dev, args.out)
     seq_rows_, seq_launches = timed("23", phase_seq, dev, args.seed)
+    # phase 22a's per-lane timings past 64 terms leave tens of GB in this
+    # process's cache; the ChEES child, sharing the card, failed to create
+    # its cusolver handle beside them, so hand the cache back first
+    held = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    print(f"card memory reserved by this process before the ChEES child: {held / 2**30:.2f} GiB, "
+          f"after emptying its cache {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB")
     child = None if args.serial or not card_shared() else start_chees(args.out)
     try:
         if child is None:
@@ -3348,6 +3557,7 @@ def main(argv=None) -> int:
         many_launches = timed("12", phase_many, dev, args.out, datasets)
         timed("15", phase_nuts_gaussian, dev)
         nuts_launches = timed("16", phase_nuts_flagship, dev, args.out)
+        stepped_launches = timed("16b", phase_stepped, dev)
         timed("17", phase_builders, dev)
         builder_launches = timed("18", phase_builders_smc, dev, args.out)
         wide_err, wide_path_launches = timed("22", phase_wide, dev, datasets)
@@ -3359,25 +3569,26 @@ def main(argv=None) -> int:
             child[0].kill()
             child[0].wait()
     overlap = ("" if child is None
-               else " (9 in a child process beside 5, 12, 15-18, 22 and 24)")
+               else " (9 in a child process beside 5, 12, 15-18, 16b, 22 and 24)")
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t_start:.1f} s; "
           f"phase wall_s{overlap} {walls}; "
           f"launches on the main paths: NS {{'celerite_fwd': {ns_launches}}}, "
           f"ChEES {chees_launches}, multi-dataset no-gradient sweeps "
           f"{{'celerite_fwd_multi': {k2_launches}}}, run_inference_many {many_launches}, "
           f"batched_loglike_tables {{'celerite_tables': {k0_launches}}}, SMC {smc_launches}, "
-          f"NUTS {nuts_launches}, SMC on the other builders {builder_launches}, "
+          f"NUTS {nuts_launches}, host-stepped NUTS and ChEES (16b) {stepped_launches}, "
+          f"SMC on the other builders {builder_launches}, "
           f"post-fit {post_launches}, resume {resume_launches}, multi-device {mesh_launches}, "
           f"DRWCelerite SMC (J=40) {wide_smc_launches}, J > 32 paths {wide_path_launches}, "
           f"seq_mesh builder (23b) {seq_launches}, CLIs (24a/b) {cli_launches}")
 
     # K1 at the NS sweep width (B = 128); K3 and K4 at the ChEES width (B = 512);
     # launches summed over the main paths that run them (NS, ChEES, SMC, NUTS,
-    # the other builders' SMC, the post-fit path, the resumed and the sharded
-    # runs, the CLIs)
+    # the host-stepped runs, the other builders' SMC, the post-fit path, the
+    # resumed and the sharded runs, the CLIs)
     t512 = timing[512]
-    paths = (chees_launches, smc_launches, nuts_launches, builder_launches, post_launches,
-             resume_launches, mesh_launches, cli_launches)
+    paths = (chees_launches, smc_launches, nuts_launches, stepped_launches, builder_launches,
+             post_launches, resume_launches, mesh_launches, cli_launches)
     rows = {
         "celerite_fwd": (ns_launches + sum(p["celerite_fwd"] for p in paths), f32_err, k_ms,
                          p_ms, k1_cost(PHASE2_BATCHES[0])),

@@ -16,6 +16,13 @@ import torch
 DEFAULT_DTYPE = torch.float64
 
 
+def default_float() -> torch.dtype:
+    """The default floating dtype: :data:`DEFAULT_DTYPE`, float64. The
+    JAX package's ``default_float`` follows its global x64 switch; the
+    port has none (its entry points take ``dtype=``), so this is fixed."""
+    return DEFAULT_DTYPE
+
+
 def require_cuda() -> torch.device:
     """The CUDA device, or ``RuntimeError`` when no card is present.
 

@@ -21,9 +21,9 @@ tests/test_torch_artifacts.py validates the committed summary against
 the acceptance gates. Exits 1 unless every run in the summary passes.
 
 The data come from the repository's ``tests/data``, so run it from a
-checkout. ChEES runs with ADVI-seeded inits and the dense metric, as the
-JAX script's; its ``hmc_stepped`` has no counterpart here (the port's
-samplers step from the host every iteration).
+checkout. ChEES and NUTS run with ADVI-seeded inits and
+``hmc_stepped=True``, ChEES with the dense metric, as the JAX script's;
+in the port that switch gives the same run as without it.
 """
 
 import argparse
@@ -357,12 +357,13 @@ def main(argv=None, *, device=None) -> int:
             print(f"== {tag}: N={len(t)} params={len(spec.names)}")
             if sampler in ("chees", "nuts"):
                 # the gradient-path parity leg: DISPERSED inits from an
-                # overdispersed ADVI fit (no warm-start crutch); ChEES
+                # overdispersed ADVI fit (no warm-start crutch), with the
+                # JAX script's hmc_stepped (the same run here); ChEES
                 # additionally gets the dense cross-chain metric (a
                 # ChEES-only knob). Gates add rhat_max <= 1.02 on top of
                 # the referee pull/width gates.
                 kw = dict(num_chains=args.chains, num_warmup=args.warmup,
-                          num_samples=args.nsamples, init="advi")
+                          num_samples=args.nsamples, init="advi", hmc_stepped=True)
                 if sampler == "chees":
                     kw.update(mass="dense")
             else:

@@ -4,8 +4,8 @@ The PyTorch counterpart of ``examples/single_pl.py`` (reference
 examples/ultranest/single_pl.jl):
 
     python -m pioran_tpu_torch.examples.single_pl data.txt
-        [--sampler ns|smc|nuts|chees|advi] [--particles 2048] [--chains 16]
-        [--dtype float32|float64] [--cpu] [--prior-checks]
+        [--sampler ns|smc|nuts|chees|advi] [--hmc-stepped] [--particles 2048]
+        [--chains 16] [--dtype float32|float64] [--cpu] [--prior-checks]
         [--posterior-checks]
 
 The file must have three columns: time, flux, flux error. Results land in
@@ -15,10 +15,10 @@ info/results.json, ultranest-compatible layout) and plots in
 
 The run goes to the card; ``--cpu`` runs on the CPU, and without a card
 and without ``--cpu`` it stops with ``RuntimeError``. ``--dtype`` stands
-for the JAX script's ``--x64``. The JAX script's ``--hmc-stepped`` has no
-counterpart: it cut ChEES into short device programs for RPC layers that
-kill long ones, and the port's samplers already step from the host every
-iteration. More GPUs: ``torchrun --nproc_per_node=<n> -m
+for the JAX script's ``--x64``. ``--hmc-stepped`` is the JAX script's
+switch to its host-stepped ChEES and NUTS drivers; the port's samplers
+step from the host already, so it gives the same run (and, as there,
+refuses ``--mesh``). More GPUs: ``torchrun --nproc_per_node=<n> -m
 pioran_tpu_torch.examples.single_pl data.txt --mesh <n>`` (one process a
 GPU), or ``--distributed`` on several nodes.
 """
@@ -40,6 +40,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mass", default="diag", choices=["diag", "dense"],
                     help="ChEES metric: diagonal, or full cross-chain "
                     "covariance (preconditions correlated ridges)")
+    ap.add_argument("--hmc-stepped", action="store_true",
+                    help="host-stepped ChEES and NUTS, as the JAX script's "
+                    "(the port's samplers step from the host already: the "
+                    "same run)")
     ap.add_argument("--particles", type=int, default=2048)
     ap.add_argument("--chains", type=int, default=16)
     ap.add_argument("--warmup", type=int, default=500)
@@ -120,7 +124,7 @@ def main(argv=None) -> int:
         num_warmup=args.warmup, num_samples=args.samples,
         num_moves=args.moves, smc_move=args.move_kind,
         log_dir=out, resume=args.resume,
-        init=args.init, mass=args.mass,
+        init=args.init, mass=args.mass, hmc_stepped=args.hmc_stepped,
     )
     _common.print_results(results, out)
 

@@ -836,6 +836,7 @@ def run_inference(
     hmc_max_leapfrogs: int = 128,
     mesh=None,
     mesh_axis=None,
+    hmc_stepped: bool = False,
 ) -> Dict:
     """Run SMC, NS, NUTS, ChEES-HMC or ADVI on a model spec and write its
     artifacts.
@@ -859,6 +860,11 @@ def run_inference(
     + ``num_samples`` steps and reports ``num_samples`` draws and the ELBO
     ``logz_lower``. ``ncall`` counts likelihood evaluations: temper steps
     x moves x particles for SMC, the exact leapfrogs for NUTS.
+    ``hmc_stepped=True`` is the JAX package's switch to its host-stepped
+    ChEES and NUTS drivers, which keep each TPU program short; the port's
+    sampler loops run on the host already, so it runs the same path and
+    gives the same samples, ``ncall`` and written files. With ``mesh=`` it
+    raises ``NotImplementedError``, as the JAX package does.
 
     Random numbers come from one ``torch.Generator`` on the spec's device
     seeded with ``seed``. Returns a results dict with posterior samples
@@ -901,6 +907,11 @@ def run_inference(
     if resume and mesh is not None and sampler == "smc":
         raise NotImplementedError(
             "resume is not supported for the mesh-sharded SMC; drop mesh= or resume=")
+    if hmc_stepped and mesh is not None and sampler in ("nuts", "chees"):
+        raise NotImplementedError(
+            f"hmc_stepped is not supported together with mesh= (the sharded "
+            f"{'NUTS' if sampler == 'nuts' else 'ChEES'} path has no stepped driver); "
+            f"drop one of the two")
     if spec.seq_mesh is not None and mesh is not None:
         raise ValueError("the spec's time axis is split over its seq_mesh's ranks, which run "
                          "the sampler replicated; mesh= cannot shard its batch over them too")

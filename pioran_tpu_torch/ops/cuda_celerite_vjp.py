@@ -16,6 +16,8 @@ the chains and for per-chain (ragged) grids. The TPU kernels
   sigma2); ``t``'s includes the chain rule through the spacings,
   t̄_m += dt̄_m - dt̄_{m+1}, and is summed over the chains for a shared
   grid, one row per chain for per-lane grids.
+- :func:`value_and_grad_tables` runs both, with ``g`` 1 on the finite
+  chains and 0 on the -inf ones.
 - Per-lane grids: ``t`` (B, N), ``dt`` (B, N-1) and ``n_valid`` (B,)
   valid lengths; only steps below a chain's ``n_valid`` count toward its
   sums, its -inf check and its loss seeds, and the constant term is
@@ -77,7 +79,8 @@ import torch
 from .. import _build
 from .celerite import exp_neg
 
-__all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "fwd_aug_carry", "bwd_carry",
+__all__ = ["fwd_aug", "fwd_aug_plain", "bwd", "bwd_plain", "value_and_grad_tables",
+           "fwd_aug_carry", "bwd_carry",
            "carry_width", "adjoint_width", "neutral_carry", "residual_bytes",
            "bwd_launch_shape", "WideShape", "wide_cpt", "wide_shape", "check_inputs", "spacings",
            "live_steps", "log2pi_terms", "KC", "MAX_TERMS", "NARROW_TERMS"]
@@ -847,6 +850,17 @@ def bwd(a, b, c, d, t, y, sigma2, residuals: Residuals, g, dt=None, kc: int = KC
     if a.is_cuda:
         return _launch_bwd(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid)
     return bwd_plain(a, b, c, d, t, y, sigma2, residuals, g, dt, kc, n_valid)
+
+
+def value_and_grad_tables(a, b, c, d, t, y, sigma2, dt=None, n_valid=None, kc: int = KC):
+    """``(ll (B,), (ā, b̄, c̄, d̄, t̄, ȳ, σ̄²))``: :func:`fwd_aug` then
+    :func:`bwd` under the cotangent 1 on every finite chain and 0 on a
+    −inf one, as the JAX package's ``value_and_grad_tables``. CUDA
+    tensors launch K3 and K4 (or raise); CPU tensors run their plain
+    versions."""
+    ll, res = fwd_aug(a, b, c, d, t, y, sigma2, dt, kc, n_valid)
+    g = torch.isfinite(ll).to(ll.dtype)
+    return ll, bwd(a, b, c, d, t, y, sigma2, res, g, dt, kc, n_valid)
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,11 @@ over the C chains of one process; ``parallel.run_chees_sharded`` passes
 one whose sums are all-reduced over ranks, each rank holding its slice
 of the chains.
 
-The JAX package's ``run_chees_stepped`` has no counterpart: it exists to
-keep each TPU program short, and this loop is on the host already.
+``run_chees_stepped`` is ``run_chees`` with the JAX package's stepped
+signature and numpy results: its ``block`` keeps each TPU program short
+there, and this loop is on the host already, so it is checked and
+changes nothing.
+``chees_warmup_and_sample`` is an alias of ``run_chees``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["run_chees", "make_chees_transition", "batch_value_and_grad", "ChainAxis"]
+__all__ = ["run_chees", "run_chees_stepped", "chees_warmup_and_sample",
+           "make_chees_transition", "batch_value_and_grad", "ChainAxis"]
 
 
 def _halton(i: int, base: int = 2, num_bits: int = 30) -> float:
@@ -346,3 +350,44 @@ def run_chees(
         "inv_mass": _metric_stats(state["chol"], mass),
     }
     return (torch.stack(samples) if samples else z0.new_zeros((0, C, dim))), stats
+
+
+def run_chees_stepped(
+    logp_batch: Callable,
+    z0,
+    generator: torch.Generator,
+    num_warmup: int = 500,
+    num_samples: int = 1000,
+    initial_step_size: float = 0.1,
+    initial_traj_length: float = 1.0,
+    target_accept: float = 0.651,
+    max_leapfrogs: int = 1024,
+    thin: int = 1,
+    mass: str = "diag",
+    block: int = 1,
+):
+    """:func:`run_chees` with the JAX package's stepped signature and
+    results: for a given ``generator`` the same draws and statistics.
+
+    ``block`` is checked (at least 1) and has no other effect: the JAX
+    driver steps the chains ``block`` transitions a device program to keep
+    each TPU program short, and the port's loop runs on the host already.
+    ``thin`` keeps every ``thin``-th post-warmup draw. Returns (samples
+    (S, C, dim) numpy, stats) with stats ``logp`` (S, C), ``accept`` and
+    ``n_leapfrogs`` (per iteration, warmup included) as numpy,
+    ``step_size`` and ``traj_length`` as floats and ``inv_mass`` (diag of
+    Sigma) as numpy.
+    """
+    if block < 1:
+        raise ValueError(f"block must be at least 1, got {block}")
+    samples, st = run_chees(logp_batch, z0, generator, num_warmup=num_warmup,
+                            num_samples=num_samples, initial_step_size=initial_step_size,
+                            initial_traj_length=initial_traj_length,
+                            target_accept=target_accept, max_leapfrogs=max_leapfrogs,
+                            mass=mass, thin=thin)
+    stats = {key: (v.cpu().numpy() if torch.is_tensor(v) else v) for key, v in st.items()}
+    return samples.cpu().numpy(), stats
+
+
+# the JAX package's descriptive name
+chees_warmup_and_sample = run_chees

@@ -22,8 +22,14 @@ a stopped trajectory enters the batch. The loops over doublings and
 leaves run on the host, with one device->host sync a leaf and one a
 doubling ("is any chain still building?").
 
-``run_nuts_stepped`` has no counterpart: it keeps each TPU program short,
-and this loop is on the host already.
+``make_nuts_transition`` is one iteration of that loop, warmup
+adaptation included, with the iteration index given from outside;
+``run_nuts`` drives it. ``run_nuts_stepped`` is ``run_nuts`` with the
+JAX package's stepped signature: its ``block`` keeps each TPU program
+short there, and this loop is on the host already, so it is checked and
+changes nothing. Its results are numpy, and its statistics keep the
+port's one layout, (C, iterations), where the JAX package's stepped
+driver has (iterations, C).
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import torch
 
 from .chees import batch_value_and_grad
 
-__all__ = ["NutsConfig", "run_nuts", "nuts_kernel", "warmup_schedule"]
+__all__ = ["NutsConfig", "run_nuts", "run_nuts_stepped", "make_nuts_transition",
+           "nuts_kernel", "warmup_schedule"]
 
 
 class NutsConfig(NamedTuple):
@@ -278,6 +285,80 @@ def _da_update(state: _DAState, accept_stat, target, gamma=0.05, t0=10.0, kappa=
     return _DAState(log_step, log_step_avg, h_sum, state.mu, count)
 
 
+def make_nuts_transition(
+    logp_batch: Callable,
+    num_warmup: int,
+    target_accept: float = 0.8,
+    max_depth: int = 8,
+    initial_step_size: float = 0.1,
+    mass_pool: Callable = None,
+):
+    """One NUTS iteration of C chains, ``transition(state, it, is_warmup,
+    generator) -> (state, out)``, and its initializer ``init(z0) ->
+    state``.
+
+    A warmup iteration steps at each chain's dual-averaging iterate
+    exp(log_step), then updates the dual averaging and the Welford
+    accumulators, and at the end of each slow window of
+    :func:`warmup_schedule` (``it`` indexes it) sets the inverse mass to
+    the regularized variance estimate (passed through ``mass_pool``, see
+    :func:`run_nuts`) and restarts the dual averaging. A sampling
+    iteration steps at the frozen exp(log_step_avg) and adapts nothing.
+    ``out`` is (z, logp, accept_stat, diverging, depth, num_leaves), each
+    with the chains first, as the JAX package's ``out`` tuple.
+    """
+    update_mass = warmup_schedule(num_warmup)
+
+    def init(z0):
+        z0 = torch.as_tensor(z0)
+        C, dim = z0.shape
+        dtype, dev = z0.dtype, z0.device
+        logp, grad = batch_value_and_grad(logp_batch, z0)
+        inv_mass = torch.ones((C, dim), dtype=dtype, device=dev)
+        return {
+            "z": z0, "logp": logp, "grad": grad,
+            "da": _da_init(torch.full((C,), initial_step_size, dtype=dtype, device=dev)),
+            "inv_mass": inv_mass, "mean": torch.zeros_like(inv_mass),
+            "m2": torch.zeros_like(inv_mass), "wcount": torch.zeros((), dtype=dtype, device=dev),
+        }
+
+    def transition(state, it: int, is_warmup: bool, generator: torch.Generator):
+        st = dict(state)
+        da = st["da"]
+        step_size = torch.exp(da.log_step if is_warmup else da.log_step_avg)
+        z, logp, grad, stats = nuts_kernel(logp_batch, st["z"], st["logp"], st["grad"],
+                                           generator, step_size, st["inv_mass"],
+                                           max_depth=max_depth)
+        st["z"], st["logp"], st["grad"] = z, logp, grad
+        if is_warmup:
+            st["da"] = _da_update(da, stats["accept_stat"], target_accept)
+            # Welford accumulation for the diagonal mass matrix
+            wcount = st["wcount"] + 1
+            delta = z - st["mean"]
+            mean = st["mean"] + delta / wcount
+            st["m2"] = st["m2"] + delta * (z - mean)
+            st["mean"], st["wcount"] = mean, wcount
+            if update_mass[it]:
+                var = st["m2"] / torch.clamp(wcount - 1, min=1)
+                # regularize like Stan: shrink toward unit scale
+                var = (wcount / (wcount + 5.0)) * var + 1e-3 * (5.0 / (wcount + 5.0))
+                if mass_pool is not None:
+                    var = mass_pool(var)
+                # restart step-size adaptation around the current value
+                st["da"] = _da_init(torch.exp(st["da"].log_step))
+                st["inv_mass"] = var
+                st["mean"], st["m2"] = torch.zeros_like(mean), torch.zeros_like(mean)
+                st["wcount"] = torch.zeros_like(wcount)
+        out = (z, logp, stats["accept_stat"], stats["diverging"], stats["depth"],
+               stats["num_leaves"])
+        return st, out
+
+    return transition, init
+
+
+_OUT_KEYS = ("accept_stat", "diverging", "depth", "num_leaves")  # out[2:]
+
+
 def run_nuts(
     logp_batch: Callable,
     z0,
@@ -297,8 +378,8 @@ def run_nuts(
     ``generator`` (on z0's device). Returns (samples (C, num_samples,
     dim), stats) with stats ``logp``, ``accept_stat``, ``diverging``,
     ``depth`` and ``num_leaves`` of the sampling iterations and
-    ``warmup_diverging``, ``warmup_depth`` and ``warmup_num_leaves`` of
-    the warmup ones, each (C, iterations); ``step_size`` (C,) and
+    ``warmup_accept_stat``, ``warmup_diverging``, ``warmup_depth`` and
+    ``warmup_num_leaves`` of the warmup ones, each (C, iterations); ``step_size`` (C,) and
     ``inv_mass`` (C, dim). ``num_leaves`` counts each transition's
     leapfrogs (value+gradient evaluations) exactly.
 
@@ -310,64 +391,76 @@ def run_nuts(
     """
     z0 = torch.as_tensor(z0)
     C, dim = z0.shape
-    dtype, dev = z0.dtype, z0.device
-    logp, grad = batch_value_and_grad(logp_batch, z0)
-    z = z0
-    update_mass = warmup_schedule(num_warmup)
-    da = _da_init(torch.full((C,), initial_step_size, dtype=dtype, device=dev))
-    inv_mass = torch.ones((C, dim), dtype=dtype, device=dev)
-    mean, m2 = torch.zeros_like(inv_mass), torch.zeros_like(inv_mass)
-    wcount = torch.zeros((), dtype=dtype, device=dev)
-
-    def transition(step_size):
-        return nuts_kernel(logp_batch, z, logp, grad, generator, step_size, inv_mass,
-                           max_depth=max_depth)
-
-    warm = {"diverging": [], "depth": [], "num_leaves": []}
-    for it in range(num_warmup):
-        z, logp, grad, st = transition(torch.exp(da.log_step))
-        da = _da_update(da, st["accept_stat"], target_accept)
-        # Welford accumulation for the diagonal mass matrix
-        wcount = wcount + 1
-        delta = z - mean
-        mean = mean + delta / wcount
-        m2 = m2 + delta * (z - mean)
-        if update_mass[it]:
-            var = m2 / torch.clamp(wcount - 1, min=1)
-            # regularize like Stan: shrink toward unit scale
-            var = (wcount / (wcount + 5.0)) * var + 1e-3 * (5.0 / (wcount + 5.0))
-            if mass_pool is not None:
-                var = mass_pool(var)
-            # restart step-size adaptation around the current value
-            da = _da_init(torch.exp(da.log_step))
-            inv_mass = var
-            mean, m2 = torch.zeros_like(mean), torch.zeros_like(m2)
-            wcount = torch.zeros_like(wcount)
-        for key in warm:
-            warm[key].append(st[key])
-
-    step_size = torch.exp(da.log_step_avg)
-    samples, draws = [], {"logp": [], "accept_stat": [], "diverging": [], "depth": [],
-                          "num_leaves": []}
-    for _ in range(num_samples):
-        z, logp, grad, st = transition(step_size)
-        samples.append(z)
-        draws["logp"].append(logp)
-        for key in ("accept_stat", "diverging", "depth", "num_leaves"):
-            draws[key].append(st[key])
+    transition, init = make_nuts_transition(logp_batch, num_warmup, target_accept, max_depth,
+                                            initial_step_size, mass_pool)
+    state = init(z0)
+    warm = {key: [] for key in _OUT_KEYS}
+    samples, draws = [], {"logp": [], **{key: [] for key in _OUT_KEYS}}
+    for it in range(num_warmup + num_samples):
+        state, out = transition(state, it, it < num_warmup, generator)
+        if it < num_warmup:
+            per_it = warm
+        else:
+            per_it = draws
+            samples.append(out[0])
+            draws["logp"].append(out[1])
+        for key, x in zip(_OUT_KEYS, out[2:]):
+            per_it[key].append(x)
 
     def stack(xs, like):
         return torch.stack(xs, dim=1) if xs else like.new_zeros((C, 0))
 
-    ints = torch.zeros(C, dtype=torch.int64, device=dev)
-    bools = torch.zeros(C, dtype=torch.bool, device=dev)
+    logp = state["logp"]
+    ints = torch.zeros(C, dtype=torch.int64, device=z0.device)
+    bools = torch.zeros(C, dtype=torch.bool, device=z0.device)
     like = {"logp": logp, "accept_stat": logp, "diverging": bools, "depth": ints,
             "num_leaves": ints}
     stats = {key: stack(v, like[key]) for key, v in draws.items()}
     stats.update({
-        "step_size": step_size,
-        "inv_mass": inv_mass,
+        "step_size": torch.exp(state["da"].log_step_avg),
+        "inv_mass": state["inv_mass"],
         **{f"warmup_{key}": stack(v, like[key]) for key, v in warm.items()},
     })
     out = torch.stack(samples, dim=1) if samples else z0.new_zeros((C, 0, dim))
     return out, stats
+
+
+def run_nuts_stepped(
+    logp_batch: Callable,
+    z0,
+    generator: torch.Generator,
+    num_warmup: int = 500,
+    num_samples: int = 1000,
+    initial_step_size: float = 0.1,
+    max_depth: int = 8,
+    target_accept: float = 0.8,
+    thin: int = 1,
+    block: int = 10,
+):
+    """:func:`run_nuts` with the JAX package's stepped signature and
+    results: for a given ``generator`` the same draws and statistics.
+
+    ``block`` is checked (at least 1) and has no other effect: the JAX
+    driver steps the chains ``block`` transitions a device program to keep
+    each TPU program short, and the port's loop runs on the host already.
+    ``thin`` keeps every ``thin``-th post-warmup draw. Returns (samples
+    (S, C, dim) numpy, stats) with stats ``logp`` (C, S) of the kept
+    draws, ``accept_stat``, ``diverging``, ``depth`` and ``num_leaves``
+    (C, num_warmup + num_samples), warmup first, ``step_size`` (C,) and
+    ``inv_mass`` (C, dim), all numpy. The statistics keep the port's one
+    layout, (C, iterations), where the JAX package's stepped driver
+    returns (iterations, C). ``num_samples=0`` returns empty draws.
+    """
+    if block < 1:
+        raise ValueError(f"block must be at least 1, got {block}")
+    chains, st = run_nuts(logp_batch, z0, generator, num_warmup=num_warmup,
+                          num_samples=num_samples, initial_step_size=initial_step_size,
+                          max_depth=max_depth, target_accept=target_accept)
+    stats = {key: torch.cat([st[f"warmup_{key}"], st[key]], dim=1).cpu().numpy()
+             for key in _OUT_KEYS}
+    stats.update({
+        "logp": st["logp"][:, ::thin].cpu().numpy(),
+        "step_size": st["step_size"].cpu().numpy(),
+        "inv_mass": st["inv_mass"].cpu().numpy(),
+    })
+    return chains[:, ::thin].transpose(0, 1).cpu().numpy(), stats

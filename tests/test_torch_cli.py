@@ -2,12 +2,12 @@
 
 - ``--help``: each CLI's option strings (with their choices) equal
   those that ``python examples/<x>.py --help`` prints, except ``--x64``,
-  which becomes ``--dtype``, and ``--hmc-stepped``, which has no
-  counterpart; the defaults and choices equal those of the JAX script's
-  own parser.
+  which becomes ``--dtype``; the defaults and choices equal those of the
+  JAX script's own parser.
 - Short runs on the CPU (``--cpu --dtype float64``, SMC with 64 particles
-  and 2 MALA moves on a 32-point cut of each light curve): the output
-  layout, the result keys of the JAX package's SMC runs, and a cached
+  and 2 MALA moves on a 32-point cut of each light curve, and
+  ``single_pl --sampler nuts --hmc-stepped`` with 2 chains): the output
+  layout, the result keys of the JAX package's SMC and NUTS runs, and a cached
   subset file byte-equal to what ``pioran_tpu.utils.extract_subset``
   writes for the same seed and input. Without ``--cpu`` on a machine
   with no card a CLI raises ``RuntimeError`` and writes nothing.
@@ -43,12 +43,14 @@ PAIRS = {  # JAX script -> port module
     "carma.py": carma,
     "tpu_parity.py": parity,
 }
-DROPPED = {"--x64", "--hmc-stepped"}  # JAX options with no counterpart
+DROPPED = {"--x64"}                     # JAX options with no counterpart
 ADDED = {"--dtype"}                     # the port's stand-in for --x64
 # defaults the port changes on purpose: its parity artifacts' directory
 DEFAULTS = {"tpu_parity.py": {"out": "artifacts/torch_parity"}}
 SMC_KEYS = {"paramnames", "sampler", "elapsed_s", "posterior", "maximum_likelihood",
             "logz", "num_temper_steps", "ncall"}
+NUTS_KEYS = {"paramnames", "sampler", "elapsed_s", "posterior", "maximum_likelihood",
+             "ncall", "rhat", "ess_bulk", "ess_tail", "ess", "ess_per_s"}
 TINY = ["--cpu", "--dtype", "float64", "--sampler", "smc", "--particles", "64",
         "--moves", "2"]
 # CLI, light curve, its own options, (t shift, take_log) as the JAX
@@ -64,6 +66,12 @@ RUNS = {
     "carma": (carma, os.path.join(ROOT, "examples", "data", "simu.txt"), ["--p", "2", "--q", "1"],
               (False, True)),
 }
+# the layout test's runs: each CLI's SMC run, and single_pl's host-stepped
+# NUTS (2 chains, 2 + 2 iterations)
+STEPPED_NUTS = ["--cpu", "--dtype", "float64", "--sampler", "nuts", "--hmc-stepped",
+                "--chains", "2", "--warmup", "2", "--samples", "2", "--components", "4"]
+LAYOUT_RUNS = {**{name: (name, TINY) for name in RUNS},
+               "single_pl-hmc-stepped": ("single_pl", STEPPED_NUTS)}
 
 
 def _option_lines(help_text):
@@ -138,21 +146,28 @@ def _run_dir(root):
     return os.path.join(root, "inference", runs[0])
 
 
-@pytest.mark.parametrize("name", sorted(RUNS))
+@pytest.mark.parametrize("name", sorted(LAYOUT_RUNS))
 def test_tiny_run_writes_the_layout(name, tmp_path, monkeypatch):
-    mod, src, extra, (shift, take_log) = RUNS[name]
+    cli, opts = LAYOUT_RUNS[name]
+    mod, src, extra, (shift, take_log) = RUNS[cli]
     data = _cut(src, str(tmp_path / f"{name}.txt"))
     monkeypatch.chdir(tmp_path)
-    assert mod.main([data, *extra, *TINY]) == 0
+    assert mod.main([data, *extra, *opts]) == 0
     out = _run_dir(str(tmp_path))
     with open(os.path.join(out, "info", "results.json")) as fh:
         res = json.load(fh)
-    assert set(res) == SMC_KEYS and res["sampler"] == "smc"
-    assert np.isfinite(res["logz"])
+    if opts is TINY:
+        assert set(res) == SMC_KEYS and res["sampler"] == "smc"
+        assert np.isfinite(res["logz"])
+        rows = 64
+    else:
+        assert set(res) == NUTS_KEYS and res["sampler"] == "nuts"
+        assert res["ncall"] > 0
+        rows = 2 * 2
     with open(os.path.join(out, "chains", "equal_weighted_post.txt")) as fh:
         assert fh.readline().split() == res["paramnames"]
     post = np.loadtxt(os.path.join(out, "chains", "equal_weighted_post.txt"), skiprows=1)
-    assert post.shape == (64, len(res["paramnames"])) and np.all(np.isfinite(post))
+    assert post.shape == (rows, len(res["paramnames"])) and np.all(np.isfinite(post))
 
     # the cached subset, against the JAX package's extract_subset on the
     # same seed (the CLIs' default 123) and curve

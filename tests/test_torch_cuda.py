@@ -964,6 +964,26 @@ def test_wide_per_lane_adjoint_kernels_match_plain_on_card(card, dtype, J):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 5e-2)])
+def test_wide_per_lane_past_64_on_card(card, dtype, tol):
+    """The per-lane K2, K3 and K4 past the registers (J = 100) on ragged
+    grids of more chains than the card has SMs (140), against their plain
+    versions: K2 by value, K3/K4 as the other adjoint tests."""
+    args, DT, nv = _ragged(140, 100, 100, seed=100)
+    targs = [torch.as_tensor(x, dtype=dtype, device=card) for x in args]
+    tnv, dt = torch.as_tensor(nv, device=card), torch.as_tensor(DT, device=card)
+    before = _wide_counts()
+    k = cuda_celerite.batched_loglike_multi(*targs, tnv, dt)
+    _moved(before, multi=1)
+    p = cuda_celerite.batched_loglike_multi_plain(*targs, tnv, dt)
+    torch.cuda.synchronize()
+    _values_close(k, p, dtype, tol)
+    before = _wide_counts()
+    _adjoint_vs_plain(card, dtype, args, DT, 8, nv, spread=True)
+    _moved(before, fwd_aug_multi=1, bwd_multi=1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kc", [1, 3, 8, 103])
 @pytest.mark.parametrize("J,B", [(40, 37), (40, 140), (128, 140)],

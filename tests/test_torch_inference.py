@@ -175,6 +175,15 @@ def test_default_device_is_the_card():
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_default_float_is_float64():
+    """The port has no global x64 switch: its default float is float64,
+    the JAX package's under the tests' x64."""
+    from pioran_tpu import config as jconfig
+
+    assert config.default_float() is torch.float64 is config.DEFAULT_DTYPE
+    assert jconfig.default_float() is jnp.float64
+
+
 def _imported_modules(path):
     with open(path) as fh:
         tree = ast.parse(fh.read(), path)
