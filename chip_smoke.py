@@ -68,15 +68,18 @@ and per-lane K3/K4) and ``batched_loglike_tables`` (the wide K0) (22),
 past the registers too (22c, 22d).
 Then the time-sharded scan (phase 23, ``parallel/seq_scan.py``): the
 carry entries of K1, K3 and K4 (``celerite_fwd_carry``,
-``celerite_fwd_aug_carry``, ``celerite_bwd_carry`` and their wide forms),
-each chained over 4 blocks of a series of 2^14 points through the ring's
-one-block helper and held against one launch of the entry without a carry
-(float64 1e-9) and, at 2^9 points, against the chained plain loops (23a),
-their times beside the entries without a carry (23c), and
-``single_bending_model(seq_mesh=)`` on a one-rank NCCL group, SHO (J = 20)
-and DRWCelerite (J = 40) on a simulated light curve of 2^15 points,
-against the spec without ``seq_mesh`` (float64 1e-12), with the plain
-loops made to raise (23b). ``--seed`` seeds its series (numpy).
+``celerite_fwd_aug_carry``, ``celerite_bwd_carry`` and their wide forms,
+at J = 100 past the registers), each chained over 4 blocks of a series of
+2^14 points through the ring's one-block helper and held against one
+launch of the entry without a carry (float64 1e-9) and, at 4 x 133
+points, against the chained plain loops (23a), their times on a block of
+4096 steps beside the entries without a carry and their plain versions'
+on its first 512 steps (23c), and ``single_bending_model(seq_mesh=)`` on
+a one-rank NCCL group, SHO (J = 20) and DRWCelerite (J = 40) on a
+simulated light curve of 2^15 points and DRWCelerite at 50 components
+(J = 100) on its first 2^14, against the spec without ``seq_mesh``
+(float64 1e-12), with the plain loops made to raise (23b). ``--seed``
+seeds its series (numpy).
 Last, the example scripts and the Kalman filters (phase 24): the four
 model CLIs' ``main`` (``pioran_tpu_torch.examples.single_pl``,
 ``double_pl``, ``single_pl_periodicity``, ``carma``; SMC with 1024
@@ -165,6 +168,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "celerite_wide_fwd_carry": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
     "celerite_wide_fwd_aug_carry": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
     "celerite_wide_bwd_carry": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
+    # the wide carry entries past the registers, at J = 100
+    "celerite_wide_fwd_carry_j100": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite.py:252"),
+    "celerite_wide_fwd_aug_carry_j100": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:127"),
+    "celerite_wide_bwd_carry_j100": (WIDE_SRC, "pioran_tpu/ops/pallas_celerite_vjp.py:540"),
 }
 PHASE2_BATCHES = (128, 4096, 1000, 1024)  # NS sweep, final sweep, ragged edge, SMC sweep
 PHASE2_TIMED = (128, 1024, 4096)
@@ -2875,12 +2882,20 @@ SEQ_N = 2**14            # 23a: a series split into SEQ_BLOCKS blocks, against o
 # whole number of K1's 32-step tables or of K3/K4's kc = 8 chunks
 SEQ_SHORT_N = 4 * 133
 SEQ_BLOCKS = 4
-# (J, B): the warp-per-chain, the wide and the past-the-registers forms;
-# the first two timed in 23c
+# (J, B): the warp-per-chain, the wide and the past-the-registers forms,
+# each timed in 23c
 SEQ_SHAPES = ((20, 64), (40, 16), (100, 8))
-SEQ_TIMED = (20, 40)
+# 23c: the plain carry versions are timed on the first SEQ_PLAIN_K steps of
+# the timed block, not all of it: a plain loop is a chain of host launches,
+# 1-4 ms a step, so 4096 steps at J = 20 and 40 took about 50 s
+SEQ_PLAIN_K = 512
 SEQ_BUILDER_N = 2**15    # 23b: the builders' simulated light curve
-SEQ_BUILDER = (("SHO", 20, 64), ("DRWCelerite", 40, 16))  # basis, J, B
+# 23b: basis, J, B, the light curve's first N points; past the registers
+# (DRWCelerite at 50 components) on 2^14 points, for its float64 K3
+# checkpoints (0.5 GB a chain) and K4 sweeps (about 38 us a step)
+SEQ_BUILDER = (("SHO", 20, 64, SEQ_BUILDER_N), ("DRWCelerite", 40, 16, SEQ_BUILDER_N),
+               ("DRWCelerite", 100, 8, SEQ_N))
+TERMS_A_COMPONENT = {"SHO": 1, "DRWCelerite": 2}
 # the carry entries' counters: kernel name -> (module, counter)
 CARRY_COUNTERS = {
     "celerite_fwd_carry": ("cc", "CARRY_LAUNCHES"),
@@ -2919,6 +2934,15 @@ def zero_carry_counts():
     mods = _counter_modules()
     for m, c in (*CARRY_COUNTERS.values(), *OTHER_COUNTERS):
         setattr(mods[m], c, 0)
+
+
+def carry_name(kind, J):
+    """The kernel line's row of a carry entry (``kind`` "fwd", "fwd_aug" or
+    "bwd") at J terms: narrow to 32, wide past it, past the registers
+    (J > 64) a row of its own width."""
+    if J <= 32:
+        return f"celerite_{kind}_carry"
+    return f"celerite_wide_{kind}_carry" + (f"_j{J}" if J > 64 else "")
 
 
 def seq_inputs(J, B, N, seed, dev, dtype):
@@ -3025,16 +3049,17 @@ def phase_seq_carry(dev, seed):
     arithmetic, so only the order of the partial sums differs) and against
     the chained plain loops at N = SEQ_SHORT_N (phase 2's and phase 6's
     gates; past the registers, J = 100, float32 at the rows' median and
-    90th percentile as phase 22); then, for J = 20 and 40, on one block
-    of the long series (K = 4096), each carry entry's time against the
-    entry without a carry and against its plain version. Returns
-    {kernel: (max abs f32 err, ms, plain ms, cost)}."""
+    90th percentile as phase 22); then, at every width, on one block of
+    the long series (K = 4096), each carry entry's time against the entry
+    without a carry, and its plain version's on the block's first
+    SEQ_PLAIN_K steps. Returns {kernel: (max abs f32 err, ms, plain ms,
+    cost)}."""
     from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
 
     rows, times = {}, []
+    plain_s = 0.0
     for J, B in SEQ_SHAPES:
-        wide = "wide_" if J > 32 else ""
-        names = [f"celerite_{wide}{k}_carry" for k in ("fwd", "fwd_aug", "bwd")]
+        names = [carry_name(k, J) for k in ("fwd", "fwd_aug", "bwd")]
         worst = {n: 0.0 for n in names}
         errs_line = []
         # one launch against the chained carry entries, N = 2^14; float32
@@ -3129,8 +3154,8 @@ def phase_seq_carry(dev, seed):
               + "; ".join(errs_line))
         # times on one block of the long series: each carry entry against
         # the same entry without a carry (in turns: carry, none, none,
-        # carry) and, at SEQ_TIMED's widths (the kernel line's rows),
-        # against its plain version (once)
+        # carry), and its plain version (once) on the block's first
+        # SEQ_PLAIN_K steps
         args, dt64 = seq_inputs(J, B, SEQ_N, seed, dev, torch.float32)
         K = SEQ_N // SEQ_BLOCKS
         a, b, c, d, t, y, s2 = args
@@ -3146,29 +3171,30 @@ def phase_seq_carry(dev, seed):
         live = int(gg.sum())
         ain = torch.zeros(B, vjp.adjoint_width(J), device=dev)
         dts = dtg[sl]
+        P = SEQ_PLAIN_K
+        pblk = (a, b, c, d, t[K:K + P], y[:, K:K + P], s2[:, K:K + P])
+        _, _, pres = vjp.fwd_aug_carry(*pblk, dts[:P], carry)
         fns = (  # (carry entry, the entry without a carry, the plain version)
             (lambda: cc.loglike_carry(*blk, dts, carry),  # noqa: B023
              lambda: cc._launch(*blk, dt64[K:2 * K - 1]),  # noqa: B023
-             lambda: cc._plain(*blk, dts, None, carry=carry)),  # noqa: B023
+             lambda: cc._plain(*pblk, dts[:P], None, carry=carry)),  # noqa: B023
             (lambda: vjp.fwd_aug_carry(*blk, dts, carry),  # noqa: B023
              lambda: vjp.fwd_aug(*blk, dt=dt64[K:2 * K - 1]),  # noqa: B023
-             lambda: vjp.fwd_aug_plain(*blk, dts, carry=carry)),  # noqa: B023
+             lambda: vjp.fwd_aug_plain(*pblk, dts[:P], carry=carry)),  # noqa: B023
             (lambda: vjp.bwd_carry(*blk, res, gg, dts, ain),  # noqa: B023
              lambda: vjp.bwd(*blk, res0, gg, dt=dt64[K:2 * K - 1]),  # noqa: B023
-             lambda: vjp.bwd_plain(*blk, res, gg, dts, carry=ain)))  # noqa: B023
+             lambda: vjp.bwd_plain(*pblk, pres, gg, dts[:P], carry=ain)))  # noqa: B023
         for name, kind, (with_carry, without, plain) in zip(names, ("fwd", "fwd_aug", "bwd"),
                                                             fns):
             m1, m0 = cuda_ms(with_carry, 10), cuda_ms(without, 10)
             m0, m1 = (m0 + cuda_ms(without, 10)) / 2, (m1 + cuda_ms(with_carry, 10)) / 2
-            pms = once_ms(plain) if J in SEQ_TIMED else float("nan")
-            if J in SEQ_TIMED:
-                rows[name] = (worst[name], m1, pms, carry_cost(kind, B, J, K, live))
-            else:
-                bms, by = bound(*carry_cost(kind, B, J, K, live))
-                times.append(f"{name} J={J} B={B} K={K}: bound_ms={bms:.5f} ({by})")
+            t0 = time.perf_counter()
+            pms = once_ms(plain)
+            plain_s += time.perf_counter() - t0
+            rows[name] = (worst[name], m1, pms, carry_cost(kind, B, J, K, live))
             times.append(f"{name} J={J} B={B} K={K}: carry_ms={m1:.4f} no_carry_ms={m0:.4f} "
-                         f"ratio={m1 / m0:.3f} plain_ms={pms:.2f}")
-        del res, res0
+                         f"ratio={m1 / m0:.3f} plain_ms={pms:.2f} (first {P} steps)")
+        del res, res0, pres
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     for ln in times:
@@ -3176,8 +3202,10 @@ def phase_seq_carry(dev, seed):
     for name, (err, ms, pms, cost) in rows.items():
         bms, by = bound(*cost)
         print(f"phase 23c {name} f32 block of {SEQ_N // SEQ_BLOCKS} steps: ms={ms:.4f} "
-              f"plain_ms={pms:.2f} bound_ms={bms:.5f} ({by}) max_abs_err_f32={err:.3e} "
-              f"(against the chained plain loops at N={SEQ_SHORT_N})")
+              f"bound_ms={bms:.5f} ({by}) plain_ms={pms:.2f} on its first {SEQ_PLAIN_K} steps "
+              f"max_abs_err_f32={err:.3e} (against the chained plain loops at N={SEQ_SHORT_N})")
+    print(f"phase 23c plain carry loops ({len(rows)}, {SEQ_PLAIN_K} steps each): "
+          f"{plain_s:.1f} s in all")
     return rows
 
 
@@ -3199,12 +3227,14 @@ def seq_light_curve(seed, N):
 def phase_seq_builder(dev, seed):
     """Phase 23b: ``single_bending_model(seq_mesh=)`` on a one-rank NCCL
     group (as phase 21 builds its group), SHO (J = 20, B = 64) and
-    DRWCelerite (J = 40, B = 16), on a simulated light curve of N = 2^15:
-    ``loglike_batch``, the scalar ``loglike`` (``logl(mesh=)``) and the
-    ``logpost_batch`` gradient against the spec without ``seq_mesh``,
-    float64 within 1e-12 relative. The plain loops and the scan are made
-    to raise while the seq specs run. Returns the carry entries' launches
-    on this path and the walls of both paths."""
+    DRWCelerite (J = 40, B = 16) on a simulated light curve of N = 2^15,
+    and DRWCelerite at 50 components (J = 100, B = 8: the carry entries
+    past the registers) on its first 2^14 points: ``loglike_batch``, the
+    scalar ``loglike`` (``logl(mesh=)``) and the ``logpost_batch``
+    gradient against the spec without ``seq_mesh``, float64 within 1e-12
+    relative. The plain loops and the scan are made to raise while the seq
+    specs run. Returns the carry entries' launches on this path, by
+    kernel row (J = 100 under its ``_j100`` rows)."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -3214,19 +3244,21 @@ def phase_seq_builder(dev, seed):
     from pioran_tpu_torch.ops import cuda_celerite_vjp as vjp
     from pioran_tpu_torch.samplers.chees import batch_value_and_grad
 
-    t, y, yerr = seq_light_curve(seed, SEQ_BUILDER_N)
-    xbar, va = float(np.mean(np.log(y))), float(np.var(np.log(y)))
+    t_all, y_all, yerr_all = seq_light_curve(seed, SEQ_BUILDER_N)
     par.initialize_distributed(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
                                rank=0, timeout=timedelta(seconds=120))
-    launches, walls = {}, {}
+    launches = {}
     try:
         mesh = par.make_mesh("seq", device_type="cuda")
 
         def refuse(*a, **k):
             raise PhaseError("a plain loop or the scan ran on the seq path")
 
-        for basis, J, B in SEQ_BUILDER:
-            kw = dict(basis_function=basis, device=dev, dtype=torch.float64)
+        for basis, J, B, N in SEQ_BUILDER:
+            t, y, yerr = t_all[:N], y_all[:N], yerr_all[:N]
+            xbar, va = float(np.mean(np.log(y))), float(np.var(np.log(y)))
+            kw = dict(basis_function=basis, n_components=J // TERMS_A_COMPONENT[basis],
+                      device=dev, dtype=torch.float64)
             seq = single_bending_model(t, y, yerr, xbar, va, seq_mesh=mesh, **kw)
             ref = single_bending_model(t, y, yerr, xbar, va, **kw)
             gen = torch.Generator(device=dev).manual_seed(seed + J)
@@ -3255,13 +3287,13 @@ def phase_seq_builder(dev, seed):
             # walls once both are warm: the first seq call also sets up the
             # process group's communicator
             w_first, w_seq, w_ref = w_seq, evaluate(seq)[1], evaluate(ref)[1]
-            wide = "wide_" if J > 32 else ""
-            mine = {k: v for k, v in counts.items() if k.startswith(f"celerite_{wide}")
-                    and (wide or "wide" not in k)}
+            # this width's three counters, under its kernel rows' names
+            mine = {carry_name(k, J): counts[carry_name(k, min(J, 64))]
+                    for k in ("fwd", "fwd_aug", "bwd")}
             check(counts["others"] == 0 and all(v >= 1 for v in mine.values())
-                  and mine[f"celerite_{wide}fwd_carry"] == 2
-                  and sum(counts[k] for k in CARRY_COUNTERS if k not in mine) == 0,
-                  f"phase 23b {basis}: launches {counts}")
+                  and mine[carry_name("fwd", J)] == 2
+                  and sum(counts.values()) - counts["others"] == sum(mine.values()),
+                  f"phase 23b {basis} J={J}: launches {counts}")
             launches.update(mine)
             fin = torch.isfinite(ll_r)
             check(torch.equal(torch.isfinite(ll), fin) and torch.equal(torch.isfinite(lp), torch.isfinite(lp_r))
@@ -3272,8 +3304,7 @@ def phase_seq_builder(dev, seed):
             fl = torch.isfinite(lp_r)
             e_g = rel_rows(gz[fl], gz_r[fl])
             e_lp = float(((lp - lp_r).abs() / lp_r.abs())[fl].max())
-            walls[basis] = (w_seq, w_ref)
-            print(f"phase 23b {basis} J={J} B={B} N={SEQ_BUILDER_N} seq_mesh (one NCCL rank) vs "
+            print(f"phase 23b {basis} J={J} B={B} N={N} seq_mesh (one NCCL rank) vs "
                   f"unsharded f64: loglike_batch rel={e_ll:.2e} loglike rel={e_one:.2e} "
                   f"logpost rel={e_lp:.2e} gradient rows rel={e_g:.2e} (gates 1e-12); "
                   f"{int(fin.sum())} finite rows; wall_s seq={w_seq:.3f} unsharded={w_ref:.3f} "
@@ -3285,16 +3316,14 @@ def phase_seq_builder(dev, seed):
     finally:
         dist.destroy_process_group()
     print("phase 23b seq_mesh builder (world size 1, NCCL): ok")
-    return launches, walls
+    return launches
 
 
 def phase_seq(dev, seed):
     """Phase 23: the time-sharded scan (23a, 23c: the carry entries; 23b:
     the builder on a one-rank NCCL mesh). Returns (rows of 23a, launches
     of 23b)."""
-    rows = phase_seq_carry(dev, seed)
-    launches, _ = phase_seq_builder(dev, seed)
-    return rows, launches
+    return phase_seq_carry(dev, seed), phase_seq_builder(dev, seed)
 
 
 # Phase 24: the example scripts and the Kalman filters
@@ -3617,8 +3646,9 @@ def main(argv=None) -> int:
     wide_launches = {**wide_smc_launches, **wide_path_launches}
     for name, (ms, plain_ms, cost) in wide_times.items():
         rows[name] = (wide_launches[name], wide_err[name], ms, plain_ms, cost)
-    # the carry entries on one block of phase 23a's long series (K = 4096);
-    # launches on phase 23b's seq_mesh builder path
+    # the carry entries on one block of phase 23a's long series (K = 4096),
+    # their plain versions on its first SEQ_PLAIN_K steps; launches on
+    # phase 23b's seq_mesh builder path
     for name, (err, ms, plain_ms, cost) in seq_rows_.items():
         rows[name] = (seq_launches[name], err, ms, plain_ms, cost)
     kernels = []
@@ -3630,7 +3660,8 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes the celerite recursion
-            "library_ms": None})
+            "library_ms": None,
+            **({"plain_steps": SEQ_PLAIN_K} if name in seq_rows_ else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

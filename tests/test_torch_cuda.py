@@ -1354,3 +1354,47 @@ def _chained(card, J, blocks):
             assert _rel_rows(k[None], r[None]) <= 1e-9
         else:
             assert _rel_rows(k[1:], r[1:]) <= 1e-9 and bool((k[0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_run_block_past_64_moves_only_the_wide_carry_counters_on_card(card):
+    """``seq_scan.run_block`` over 2 blocks at J = 100 (the seq path's
+    one-block helper past the registers), forward without and with a
+    gradient, then K4's carry entry back over the blocks: each wide carry
+    counter moves by 2, every other kernel counter stays, and the chained
+    value is one launch's within 1e-9 in float64."""
+    from pioran_tpu_torch.ops import cuda_celerite as cc, cuda_celerite_vjp as vjp
+    from pioran_tpu_torch.parallel.seq_scan import run_block
+
+    J, B = 100, 8
+    (a, b, c, d, t, y, s2), dtg, _ = _carry_problem(J, torch.float64, card)
+    a, b, c, d, y, s2 = a[:B], b[:B], c[:B], d[:B], y[:B], s2[:B]
+    g = torch.linspace(0.5, 1.5, B, dtype=a.dtype, device=card)
+    g[0] = 0.0
+    blocks = [slice(0, 150), slice(150, 300)]
+    names = [(cc, n) for n in ("LAUNCHES", "MULTI_LAUNCHES", "TABLES_LAUNCHES", "CARRY_LAUNCHES",
+                               "WIDE_LAUNCHES", "WIDE_MULTI_LAUNCHES", "WIDE_TABLES_LAUNCHES",
+                               "WIDE_CARRY_LAUNCHES")]
+    names += [(vjp, f"{w}{k}{m}_LAUNCHES") for w in ("", "WIDE_") for k in ("FWD_AUG", "BWD")
+              for m in ("", "_MULTI", "_CARRY")]
+    before = [getattr(m, n) for m, n in names]
+    for grad in (False, True):
+        carry, parts, saved = vjp.neutral_carry(B, J, a), [], []
+        for sl in blocks:
+            p, carry, res = run_block(a, b, c, d, t[sl], y[:, sl], s2[:, sl], dtg[sl], carry, grad)
+            parts.append(p)
+            saved.append(res)
+    ain = a.new_zeros(B, vjp.adjoint_width(J))
+    for k in reversed(range(len(blocks))):
+        sl = blocks[k]
+        ain = vjp.bwd_carry(a, b, c, d, t[sl], y[:, sl], s2[:, sl], saved[k], g, dtg[sl], ain)[-1]
+    torch.cuda.synchronize()
+    moved = {n: getattr(m, n) - v for (m, n), v in zip(names, before) if getattr(m, n) != v}
+    assert moved == {"WIDE_CARRY_LAUNCHES": 2, "WIDE_FWD_AUG_CARRY_LAUNCHES": 2,
+                     "WIDE_BWD_CARRY_LAUNCHES": 2}
+    ll = batched_loglike(a, b, c, d, t, y, s2, dtg[1:])
+    v = -0.5 * (sum(p[:, 0] for p in parts) + sum(p[:, 1] for p in parts)
+                + t.shape[0] * math.log(2 * math.pi))
+    fin = torch.isfinite(ll)
+    assert bool(~fin[0]) and int(fin.sum()) == B - 1
+    assert float(((v - ll).abs() / ll.abs())[fin].max()) <= 1e-9

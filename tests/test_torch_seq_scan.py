@@ -5,8 +5,8 @@ and the carry entries of K1, K3 and K4 it runs.
   ``cuda_celerite_vjp.fwd_aug_plain`` and ``bwd_plain`` with a carry), the
   CPU side of the carry entries: a series split at 2 and 4 block
   boundaries, each block started from the carry the one before ended
-  with, equals one pass in float64 within 1e-12 relative, at J = 3, 20
-  and 40.
+  with, equals one pass in float64 within 1e-12 relative, at J = 3, 20,
+  40 and 100 (past the registers).
 - The forward carry after block 0 equals the carry of the JAX package's
   ``lax.scan(_uniform_step(suma), neutral, block 0)`` within 1e-12.
 - The ring on gloo groups of 2 and 4 CPU processes (each rank a process
@@ -18,8 +18,9 @@ and the carry entries of K1, K3 and K4 it runs.
   1e-8, every rank's results bit-identical; the ``ValueError`` for an
   indivisible N and B; ``dt=`` and the padding of B = 5; one all-reduce
   a group, not one a call;
-  ``single_bending_model(seq_mesh=)`` and ``carma_model(seq_mesh=)``
-  against the JAX package's unsharded specs; ``ops.celerite.logl``'s
+  ``single_bending_model(seq_mesh=)`` (SHO at 4 components, and
+  DRWCelerite at 50, J = 100, past the registers) and
+  ``carma_model(seq_mesh=)`` against the JAX package's unsharded specs; ``ops.celerite.logl``'s
   routing; and a short SMC fit through ``run_inference`` on a
   ``seq_mesh`` spec at N = 2048, on a group of 2 of its own (the fit's
   sweeps run the plain loops over every step of the series on every
@@ -43,6 +44,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
 WORLDS = (2, 4)
 PIPE = dict(B=16, J=3, N=1024, n_micro=4)
+# the builder past the registers: J = 2 x 50 terms on a series that both
+# worlds divide
+DRW = dict(N=256, n_components=50, B=3)
 
 
 def _free_port() -> int:
@@ -150,7 +154,7 @@ def _split_plain(args, dtg, nb, g, kc=8):
 
 
 @pytest.mark.parametrize("nb", [2, 4])
-@pytest.mark.parametrize("J", [3, 20, 40])
+@pytest.mark.parametrize("J", [3, 20, 40, 100])
 def test_plain_carry_split_equals_one_pass(J, nb):
     """K1's, K3's and K4's plain carry versions over nb blocks (of 12 or
     24 steps, not a whole number of kc = 8 chunks) against one pass of
@@ -160,7 +164,7 @@ def test_plain_carry_split_equals_one_pass(J, nb):
 
     N = 48
     a, b, c, d, t, y, s2 = (torch.as_tensor(x) for x in _coefficients(3, J, N, seed=J, span=40.0))
-    a = a / J
+    a, b = a / J, b / J  # b with a, so the kernel stays positive definite at every J
     args = (a, b, c, d, t, y, s2)
     dt = torch.diff(t)
     dtg = torch.cat([dt.new_zeros(1), dt])
@@ -177,7 +181,7 @@ def test_plain_carry_split_equals_one_pass(J, nb):
         assert _rel(x, r) <= 1e-12
 
 
-@pytest.mark.parametrize("J", [3, 20])
+@pytest.mark.parametrize("J", [3, 20, 100])
 def test_carry_out_matches_jax_uniform_scan(J):
     """Block 0's forward carry out, against the carry of the JAX package's
     ``lax.scan(_uniform_step(suma), neutral, block 0)`` on the same
@@ -361,6 +365,18 @@ def _checks(mesh, out):
     Z = spec.prior.to_unconstrained(TH).requires_grad_(True)
     lp = spec.logpost_batch(Z)
     out["sb_lp"], out["sb_grad"] = lp.detach(), torch.autograd.grad(lp.sum(), Z)[0]
+    # past the registers: DRWCelerite at 50 components (J = 100), B = 3
+    td, yd, ed = _tiled_simu(DRW["N"])
+    dspec = single_bending_model(td, yd, ed, float(np.mean(np.log(yd))),
+                                 float(np.var(np.log(yd))), basis_function="DRWCelerite",
+                                 n_components=DRW["n_components"], device="cpu",
+                                 dtype=torch.float64, seq_mesh=mesh)
+    THd = f64(_sb_theta(yd)[:DRW["B"]])
+    out["drw_batch"] = dspec.loglike_batch(THd)
+    out["drw_one"] = torch.stack([dspec.loglike(th) for th in THd])
+    Zd = dspec.prior.to_unconstrained(THd).requires_grad_(True)
+    lpd = dspec.logpost_batch(Zd)
+    out["drw_lp"], out["drw_grad"] = lpd.detach(), torch.autograd.grad(lpd.sum(), Zd)[0]
     tc, yc, ec = _long_series(1024, 3)
     xc, vc = float(np.mean(np.log(yc))), float(np.var(np.log(yc)))
     cspec = carma_model(tc, yc, ec, xc, vc, p=2, q=1, device="cpu", dtype=torch.float64,
@@ -472,6 +488,15 @@ def _references():
     rows = [lp_fn(z) for z in Z]
     ref["sb_lp"] = np.asarray([float(r[0]) for r in rows])
     ref["sb_grad"] = np.stack([np.asarray(r[1]) for r in rows])
+    td, yd, ed = _tiled_simu(DRW["N"])
+    dspec = jsb(td, yd, ed, float(np.mean(np.log(yd))), float(np.var(np.log(yd))),
+                basis_function="DRWCelerite", n_components=DRW["n_components"])
+    THd = jnp.asarray(_sb_theta(yd)[:DRW["B"]])
+    ref["drw"] = np.asarray(jax.jit(jax.vmap(dspec.loglike))(THd))
+    lp_fn = jax.jit(jax.value_and_grad(dspec.logpost_unconstrained))
+    rows = [lp_fn(z) for z in jax.vmap(dspec.prior.to_unconstrained)(THd)]
+    ref["drw_lp"] = np.asarray([float(r[0]) for r in rows])
+    ref["drw_grad"] = np.stack([np.asarray(r[1]) for r in rows])
     tc, yc, ec = _long_series(1024, 3)
     ref["carma_spec"] = jcarma(tc, yc, ec, float(np.mean(np.log(yc))),
                                float(np.var(np.log(yc))), p=2, q=1)
@@ -580,6 +605,21 @@ def test_builders_on_a_seq_mesh_match_jax(world, launched):
     assert np.isfinite(want).all()
     assert _rel(o["carma_batch"], want) <= 1e-10
     assert abs(float(o["carma_one"]) / want[0] - 1.0) <= 1e-10
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_builder_past_64_terms_on_a_seq_mesh_matches_jax(world, launched):
+    """single_bending_model(basis_function="DRWCelerite", n_components=50,
+    seq_mesh=) (J = 100: the carry entries past the registers on the card,
+    their plain versions here) against the JAX package's unsharded spec:
+    loglike_batch, loglike and logpost_batch within 1e-10 relative, the
+    gradient rows within 1e-8 (jax.grad row by row)."""
+    o, ref = launched[0][(world, "checks")][0], launched[1]
+    assert o["drw_batch"].shape == (DRW["B"],) and np.isfinite(ref["drw"]).all()
+    assert _rel(o["drw_batch"], ref["drw"]) <= 1e-10
+    assert _rel(o["drw_one"], ref["drw"]) <= 1e-10
+    assert _rel(o["drw_lp"], ref["drw_lp"]) <= 1e-10
+    assert _rel_rows(o["drw_grad"], ref["drw_grad"]) <= 1e-8
 
 
 def test_smc_fit_on_a_seq_mesh(launched):
